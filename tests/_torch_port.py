@@ -1,0 +1,59 @@
+"""Shared helpers for the tests of the PyTorch port (`tests/test_torch_*.py`).
+
+Every test makes its inputs with numpy from a fixed seed and hands the same
+arrays to the JAX package and to the port, both on the CPU.
+"""
+
+import jax
+import numpy as np
+import torch
+
+from xritdemod_tpu_torch import convert, tx
+
+
+def tnp(t):
+    """Port output (tensor / CF32 / nested tuples) -> numpy, same nesting."""
+    return convert.to_numpy(t)
+
+
+def jnp_tree(tree):
+    """JAX pytree -> same pytree with numpy leaves."""
+    return jax.tree.map(np.asarray, tree)
+
+
+def make_capture(cfg, channels, frames_per_channel, lrit=True, noise=0.05):
+    """Per-channel IQ captures carrying real CADU streams (distinct VCIDs),
+    made by the port's own synthesiser; returns (`(C, n)` complex64, vcdus)."""
+    sigs, vcdus = [], []
+    for c in range(channels):
+        v = tx.make_vcdus(
+            frames_per_channel, scid=13, vcid=c + 1, counter0=100 * c,
+            rng=np.random.default_rng(50 + c),
+        )
+        symbols = tx.encode_stream(v, lrit=lrit, rng=np.random.default_rng(90 + c))
+        sigs.append(
+            tx.modulate(
+                symbols, cfg, np.random.default_rng(10 + c),
+                freq_offset=1e-4, phase=0.4 + 0.3 * c, noise=noise,
+            )
+        )
+        vcdus.append(v)
+    n = min(len(s) for s in sigs)
+    return np.stack([s[:n] for s in sigs]), vcdus
+
+
+def frames_of(batch, ok=None):
+    """Per channel, the `(vcid, counter, vcdu bytes)` of every good frame of a
+    `(C, k)`-leading FrameBatch (numpy or tensor fields), in order."""
+    get = lambda a: a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    fok, vcid, ctr, vc = (get(getattr(batch, f)) for f in ("frame_ok", "vcid", "counter", "vcdu"))
+    out = []
+    for c in range(fok.shape[0]):
+        out.append(
+            [
+                (int(vcid[c, i]), int(ctr[c, i]), bytes(vc[c, i]))
+                for i in range(fok.shape[1])
+                if fok[c, i]
+            ]
+        )
+    return out

@@ -1,0 +1,163 @@
+"""The port stands alone: importing `xritdemod_tpu_torch` pulls in neither
+JAX nor the JAX package nor a GPU toolchain, and the shared configuration
+fields and constants agree with the JAX package's."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import xritdemod_tpu.constants as jconst
+import xritdemod_tpu_torch.constants as tconst
+from xritdemod_tpu.models.decoder import DecoderConfig as JDecoderConfig
+from xritdemod_tpu.models.demodulator import DemodConfig as JDemodConfig
+from xritdemod_tpu_torch.models.decoder import DecoderConfig
+from xritdemod_tpu_torch.models.demodulator import DemodConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import xritdemod_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "xritdemod_tpu", "triton")
+    or m == "torch.utils.cpp_extension"
+)
+print("MODULES", len(names))
+print("BAD", bad)
+"""
+
+
+@pytest.fixture(scope="module")
+def probe():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def test_every_submodule_imports(probe):
+    n = int(probe.split("MODULES")[1].split()[0])
+    assert n >= 25
+
+
+def test_import_leaves_jax_and_jax_package_out(probe):
+    assert "BAD []" in probe, probe
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(ROOT, "xritdemod_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    return files
+
+
+def test_sources_name_no_jax_import():
+    for path in _port_sources():
+        roots = _imported_roots(path)
+        assert not roots & {"jax", "jaxlib", "xritdemod_tpu"}, path
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+_DEMOD_SHARED = [f.name for f in dataclasses.fields(DemodConfig)]
+_DECODER_SHARED = [f.name for f in dataclasses.fields(DecoderConfig)]
+
+
+@pytest.mark.parametrize("field", _DEMOD_SHARED)
+def test_demod_config_default_matches(field):
+    assert getattr(DemodConfig(), field) == getattr(JDemodConfig(), field)
+
+
+@pytest.mark.parametrize("field", _DECODER_SHARED)
+def test_decoder_config_default_matches(field):
+    assert getattr(DecoderConfig(), field) == getattr(JDecoderConfig(), field)
+
+
+@pytest.mark.parametrize("mode", ["lrit", "hrit"])
+def test_config_presets_match(mode):
+    a, b = getattr(DemodConfig, mode)(), getattr(JDemodConfig, mode)()
+    for f in _DEMOD_SHARED:
+        assert getattr(a, f) == getattr(b, f)
+    assert a.sps == b.sps
+    assert DecoderConfig(mode=mode).uws == JDecoderConfig(mode=mode).uws
+
+
+def test_constants_match():
+    names = [n for n in dir(jconst) if n.isupper()]
+    assert len(names) > 40
+    for n in names:
+        assert getattr(tconst, n) == getattr(jconst, n), n
+
+
+def test_numpy_copies_match():
+    from xritdemod_tpu.ops import conv_code as jcc, filters as jf, interp_taps as jit_
+    from xritdemod_tpu_torch.ops import conv_code as tcc, filters as tf, interp_taps as tit
+
+    np.testing.assert_array_equal(tit.mmse_taps_table(), jit_.mmse_taps_table())
+    np.testing.assert_array_equal(
+        tf.rrc_taps(1.0, 1_250_000, 293_883, 0.5, 63),
+        jf.rrc_taps(1.0, 1_250_000, 293_883, 0.5, 63),
+    )
+    np.testing.assert_array_equal(
+        tf.lowpass_taps(1.0, 2_500_000, 625_000, 100e3),
+        jf.lowpass_taps(1.0, 2_500_000, 625_000, 100e3),
+    )
+    for a, b in zip(tcc.branch_signs(), jcc.branch_signs()):
+        np.testing.assert_array_equal(a, b)
+    bits = np.random.default_rng(3).integers(0, 2, 500).astype(np.uint8)
+    np.testing.assert_array_equal(tcc.conv_encode_bits(bits)[0], jcc.conv_encode_bits(bits)[0])
+    np.testing.assert_array_equal(tcc.nrzm_encode_bits(bits)[0], jcc.nrzm_encode_bits(bits)[0])
+
+
+def test_tx_matches():
+    from xritdemod_tpu import tx as jtx
+    from xritdemod_tpu_torch import tx as ttx
+
+    v = ttx.make_vcdus(3, vcid=7, counter0=5, rng=np.random.default_rng(1))
+    np.testing.assert_array_equal(
+        v, jtx.make_vcdus(3, vcid=7, counter0=5, rng=np.random.default_rng(1))
+    )
+    for lrit in (True, False):
+        s = ttx.encode_stream(v, lrit=lrit, noise=0.2, lead=100, rng=np.random.default_rng(2))
+        np.testing.assert_array_equal(
+            s, jtx.encode_stream(v, lrit=lrit, noise=0.2, lead=100, rng=np.random.default_rng(2))
+        )
+    cfg = DemodConfig.lrit()
+    np.testing.assert_array_equal(
+        ttx.modulate(s[:4000], cfg, np.random.default_rng(4)),
+        jtx.modulate(s[:4000], JDemodConfig.lrit(), np.random.default_rng(4)),
+    )

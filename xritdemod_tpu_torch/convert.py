@@ -1,0 +1,100 @@
+"""Carry receiver state between the JAX package and this port.
+
+The system has no trained weights: its taps and tables are derived from the
+configuration in both packages, and what a running receiver owns is its
+carried state.  These functions turn the JAX package's `DemodState`,
+`RxState` and decoder tails — given as **numpy arrays** in the same nesting
+(NamedTuples, plain tuples in field order, or dicts keyed by field name; the
+caller does the `np.asarray`) — into the port's state on a device, and back.
+Nothing here imports JAX.
+
+Field order (both packages):
+  DemodState  (dec_hist, agc_gain, rrc_hist, costas, clock)
+  CostasState (phase, freq)
+  ClockRecoveryState (mu, omega, ii, p, c, tail)
+  RxState     (demod, ring, fill, locked, tails)
+  CF32        (re, im)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xritdemod_tpu_torch.models.demodulator import DemodState
+from xritdemod_tpu_torch.models.receiver import RxState
+from xritdemod_tpu_torch.ops.clock_recovery import ClockRecoveryState
+from xritdemod_tpu_torch.ops.costas import CostasState
+from xritdemod_tpu_torch.utils.cplx import CF32
+
+__all__ = ["demod_state_from_numpy", "rx_state_from_numpy", "tails_from_numpy", "to_numpy"]
+
+
+def _field(obj, name: str, index: int):
+    if isinstance(obj, dict):
+        return obj[name]
+    if hasattr(obj, name):
+        return getattr(obj, name)
+    return obj[index]
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(dtype).to(device)
+
+
+def _f32(a, device):
+    return _tensor(a, torch.float32, device)
+
+
+def _cf32(obj, device) -> CF32:
+    return CF32(_f32(_field(obj, "re", 0), device), _f32(_field(obj, "im", 1), device))
+
+
+def demod_state_from_numpy(state, device="cuda") -> DemodState:
+    """Channel-batched `DemodState` (numpy leaves) -> the port's, on `device`."""
+    costas = _field(state, "costas", 3)
+    clock = _field(state, "clock", 4)
+    return DemodState(
+        dec_hist=_cf32(_field(state, "dec_hist", 0), device),
+        agc_gain=_f32(_field(state, "agc_gain", 1), device),
+        rrc_hist=_cf32(_field(state, "rrc_hist", 2), device),
+        costas=CostasState(
+            phase=_f32(_field(costas, "phase", 0), device),
+            freq=_f32(_field(costas, "freq", 1), device),
+        ),
+        clock=ClockRecoveryState(
+            mu=_f32(_field(clock, "mu", 0), device),
+            omega=_f32(_field(clock, "omega", 1), device),
+            ii=_tensor(_field(clock, "ii", 2), torch.int32, device),
+            p=_cf32(_field(clock, "p", 3), device),
+            c=_cf32(_field(clock, "c", 4), device),
+            tail=_cf32(_field(clock, "tail", 5), device),
+        ),
+    )
+
+
+def tails_from_numpy(tails, device="cuda") -> torch.Tensor:
+    """Decoder Viterbi history tails `(B, 64)` (or `(64,)`) -> float32 tensor."""
+    return _f32(tails, device)
+
+
+def rx_state_from_numpy(state, device="cuda") -> RxState:
+    """`RxState` (numpy leaves; the ring in any float type) -> the port's."""
+    return RxState(
+        demod=demod_state_from_numpy(_field(state, "demod", 0), device),
+        ring=_f32(np.asarray(_field(state, "ring", 1), np.float32), device),
+        fill=_tensor(_field(state, "fill", 2), torch.int32, device),
+        locked=_tensor(_field(state, "locked", 3), torch.bool, device),
+        tails=tails_from_numpy(_field(state, "tails", 4), device),
+    )
+
+
+def to_numpy(state):
+    """Any of the port's states (or a tensor) -> the same nesting as plain
+    tuples of numpy arrays, in field order — what the JAX package's
+    NamedTuples can be rebuilt from positionally."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    if isinstance(state, (tuple, list)):
+        return tuple(to_numpy(s) for s in state)
+    raise TypeError(f"cannot convert {type(state).__name__}")

@@ -1,0 +1,203 @@
+"""The BPSK demodulation chain as a block-functional step, channel-batched.
+
+Counterpart of `xritdemod_tpu/models/demodulator.py` (its batch path
+`block_batch`; the single-stream `process` path, the K-slab block updates,
+the sinc interpolator and the SNR tap are not ported yet): one function
+consumes a fixed-size `(C, T)` complex block plus a small carried state and
+returns soft symbols plus the next state.
+
+Chain: [decimating low-pass FIR] -> AGC -> RRC FIR -> Costas loop -> M&M
+clock recovery -> Re{.} soft symbols.  On the GPU the middle three stages
+are the fused front-end kernel (`ops/frontend_cuda.py`) and the clock is
+`ops/clock_cuda.py`; a CPU state/block takes their plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from xritdemod_tpu_torch import constants as C
+from xritdemod_tpu_torch.ops import agc as agc_op
+from xritdemod_tpu_torch.ops import clock_recovery as cr_op
+from xritdemod_tpu_torch.ops import costas as costas_op
+from xritdemod_tpu_torch.ops import filters, fir
+from xritdemod_tpu_torch.ops.clock_cuda import clock_recovery_block_kernel_batch_cl
+from xritdemod_tpu_torch.ops.frontend_cuda import demod_frontend
+from xritdemod_tpu_torch.utils.cplx import CF32, from_complex
+
+__all__ = ["DemodConfig", "DemodState", "Demodulator", "quantize_symbols"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DemodConfig:
+    """Demodulator operating point (mirrors xritdemod.cfg keys).
+
+    The fields and defaults are those of the JAX package's `DemodConfig`
+    minus its device tuning knobs (tile sizes, kernel selectors, block
+    updates), which have no meaning here.
+    """
+
+    symbol_rate: int = C.LRIT_SYMBOL_RATE
+    sample_rate: int = 1_250_000
+    decimation: int = 1
+    rrc_alpha: float = C.LRIT_RRC_ALPHA
+    pll_alpha: float = C.CLOCK_ALPHA       # the reference's shipped default
+    rrc_taps: int = C.RRC_TAPS
+    agc_rate: float = C.AGC_RATE
+    agc_reference: float = C.AGC_REFERENCE
+    agc_gain: float = C.AGC_GAIN
+    agc_max_gain: float = C.AGC_MAX_GAIN
+    clock_alpha: float = C.CLOCK_ALPHA
+    clock_mu: float = C.CLOCK_MU
+    clock_omega_limit: float = C.CLOCK_OMEGA_LIMIT
+    # Fractional interpolator of the M&M clock: only the tabulated 8-tap
+    # MMSE interpolator ("mmse", the shared default) is ported.
+    clock_interp: str = "mmse"
+
+    @classmethod
+    def lrit(cls, sample_rate: int = 1_250_000, decimation: int = 1, **kw) -> "DemodConfig":
+        return cls(
+            symbol_rate=C.LRIT_SYMBOL_RATE,
+            rrc_alpha=C.LRIT_RRC_ALPHA,
+            sample_rate=sample_rate,
+            decimation=decimation,
+            **kw,
+        )
+
+    @classmethod
+    def hrit(cls, sample_rate: int = 3_000_000, decimation: int = 1, **kw) -> "DemodConfig":
+        return cls(
+            symbol_rate=C.HRIT_SYMBOL_RATE,
+            rrc_alpha=C.HRIT_RRC_ALPHA,
+            sample_rate=sample_rate,
+            decimation=decimation,
+            **kw,
+        )
+
+    @property
+    def circuit_sample_rate(self) -> float:
+        return self.sample_rate / self.decimation
+
+    @property
+    def sps(self) -> float:
+        return self.circuit_sample_rate / self.symbol_rate
+
+
+class DemodState(NamedTuple):
+    dec_hist: CF32
+    agc_gain: torch.Tensor
+    rrc_hist: CF32
+    costas: costas_op.CostasState
+    clock: cr_op.ClockRecoveryState
+
+
+class Demodulator:
+    """Builds taps/params for a config and exposes the batched block step.
+
+    `block_len` is the number of complex input samples consumed per step
+    (must be a multiple of `decimation`).
+    """
+
+    def __init__(self, config: DemodConfig, block_len: int = 1 << 17, device="cuda"):
+        if block_len % config.decimation:
+            raise ValueError("block_len must be a multiple of decimation")
+        if config.clock_interp != "mmse":
+            raise ValueError(
+                f"clock_interp must be 'mmse' in this port, got {config.clock_interp!r}"
+            )
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Demodulator(device='cuda') needs a CUDA device")
+        self.config = config
+        self.block_len = block_len
+
+        # Tap design exactly as the reference (demodulator.cpp:443-444).
+        t = lambda a: torch.from_numpy(a).to(self.device)
+        self._rrc_taps = t(
+            filters.rrc_taps(
+                1.0, config.circuit_sample_rate, config.symbol_rate,
+                config.rrc_alpha, config.rrc_taps,
+            )
+        )
+        if config.decimation > 1:
+            self._dec_taps = t(
+                filters.lowpass_taps(
+                    1.0, config.sample_rate, config.circuit_sample_rate / 2.0, 100e3
+                )
+            )
+        else:
+            self._dec_taps = torch.ones((1,), dtype=torch.float32, device=self.device)
+
+        self._agc = agc_op.AgcParams(
+            rate=config.agc_rate,
+            reference=config.agc_reference,
+            gain=config.agc_gain,
+            max_gain=config.agc_max_gain,
+        )
+        self._costas = costas_op.costas_gains(config.pll_alpha)
+        self._clock = cr_op.ClockRecoveryParams(
+            omega=config.sps,
+            gain_omega=config.clock_alpha * config.clock_alpha / 4.0,
+            gain_mu=config.clock_alpha,
+            omega_relative_limit=config.clock_omega_limit,
+        )
+        self.num_slots = cr_op.max_symbols(block_len // config.decimation, self._clock)
+
+    # -- state ------------------------------------------------------------
+    def init_state_batch(self, channels: int) -> DemodState:
+        dev = self.device
+        return DemodState(
+            dec_hist=fir.fir_init(int(self._dec_taps.shape[0]), (channels,), dev),
+            agc_gain=agc_op.agc_init(self._agc, (channels,), dev),
+            rrc_hist=fir.fir_init(int(self._rrc_taps.shape[0]), (channels,), dev),
+            costas=costas_op.costas_init((channels,), dev),
+            clock=cr_op.clock_recovery_init(
+                self._clock, self.config.clock_mu, channels, dev
+            ),
+        )
+
+    # -- the batched step ---------------------------------------------------
+    @torch.no_grad()
+    def block_batch(self, x, state: DemodState):
+        """`(C, T)` block (CF32 or complex numpy) with `(C,)`-leading state
+        -> (soft `(C, num_slots)`, valid `(C, num_slots)`, next state)."""
+        cfg = self.config
+        if not isinstance(x, CF32):
+            x = from_complex(x, self.device)
+        if cfg.decimation > 1:
+            x, dec_hist = fir.fir_block(x, self._dec_taps, state.dec_hist, cfg.decimation)
+        else:
+            dec_hist = state.dec_hist
+        expect = self.block_len // cfg.decimation
+        if x.re.shape[-1] != expect:
+            raise ValueError(
+                f"block_batch got {x.re.shape[-1]} post-decimation samples; this "
+                f"Demodulator was built for block_len={self.block_len} (-> {expect})"
+            )
+        # Channels-last from here on: the layout of both kernels.
+        xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+        yT, agc_gain, rrc_hist, costas_state = demod_frontend(
+            xT, state.agc_gain, state.rrc_hist, state.costas,
+            self._agc, self._rrc_taps, self._costas,
+        )
+        syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
+            yT, state.clock, self._clock, self.num_slots
+        )
+        soft = syms.re   # the reference takes Re{.}
+        return soft, valid, DemodState(
+            dec_hist=dec_hist,
+            agc_gain=agc_gain,
+            rrc_hist=rrc_hist,
+            costas=costas_state,
+            clock=clock_state,
+        )
+
+
+def quantize_symbols(soft: torch.Tensor) -> torch.Tensor:
+    """float soft symbols -> int8 wire format: clip(soft*127, -128, 127),
+    then a truncating cast."""
+    q = torch.clamp(soft * C.SYMBOL_SCALE, -128.0, 127.0)
+    return q.to(torch.int8)

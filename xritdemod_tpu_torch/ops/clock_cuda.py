@@ -1,0 +1,137 @@
+"""CUDA M&M clock recovery (mmse interpolator): wrapper for `csrc/clock.cu`.
+
+Replaces `xritdemod_tpu/ops/clock_pallas.py` (`_clock_pallas_core` /
+`_mm_kernel`, entries `clock_recovery_block_pallas_batch[_cl]`), exact
+per-symbol mmse form.  One thread per channel runs the recursion of
+`ops/clock_recovery.py` over `[tail | block]` in channels-last layout,
+indexing its own sample position directly — none of the TPU kernel's window
+staging, barrel alignment or block segmentation is needed.
+
+What bounds it on an H100: the bytes are one read of the block and one
+write of the symbols, but each channel is a chain of ~T/sps dependent
+symbols whose next load address comes out of the loop filter, so the
+sequential depth binds, with only C threads in flight.  The design keeps a
+warp's 32 channels on neighbouring addresses, prefetches ahead into L2 and
+writes symbols out as coalesced rows through a shared-memory transpose.
+
+The plain version is `ops/clock_recovery.clock_recovery_block_batch`; a CPU
+tensor takes it, a CUDA tensor takes the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from xritdemod_tpu_torch import _build
+from xritdemod_tpu_torch.ops.clock_recovery import (
+    NTAIL,
+    ClockRecoveryParams,
+    ClockRecoveryState,
+    mmse_table,
+    clock_recovery_block_batch,
+)
+from xritdemod_tpu_torch.utils.cplx import CF32
+
+__all__ = [
+    "clock_recovery_block_kernel_batch",
+    "clock_recovery_block_kernel_batch_cl",
+    "clock_recovery_block_plain_cl",
+    "launches",
+]
+
+launches = 0
+
+
+def _lib():
+    fn = _build.load("clock").xrit_clock
+    if not fn.argtypes:
+        fn.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 3
+            + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.no_grad()
+def clock_recovery_block_plain_cl(x: CF32, state, params, num_slots: int):
+    """Plain version at the kernel's channels-last contract."""
+    xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+    return clock_recovery_block_batch(xc, state, params, num_slots)
+
+
+@torch.no_grad()
+def clock_recovery_block_kernel_batch_cl(
+    x: CF32,
+    state: ClockRecoveryState,
+    params: ClockRecoveryParams,
+    num_slots: int,
+):
+    """Channels-last entry: `(T, C)` CF32 block (as the front end leaves it),
+    `(C,)`-leading state.  Returns `(symbols (C, S) CF32, valid (C, S) bool,
+    new_state)` — the contract of `clock_recovery_block_batch`."""
+    global launches
+    if not x.re.is_cuda:
+        return clock_recovery_block_plain_cl(x, state, params, num_slots)
+    T, C = x.re.shape
+    S = int(num_slots)
+    dev = x.re.device
+    if T < NTAIL:
+        raise ValueError(f"block of {T} samples is shorter than the {NTAIL}-sample tail")
+    f32s = [x.re, x.im, state.mu, state.omega, state.p.re, state.p.im,
+            state.c.re, state.c.im, state.tail.re, state.tail.im]
+    if any(t.dtype != torch.float32 or t.device != dev for t in f32s):
+        raise ValueError("clock recovery: need float32 tensors on one device")
+    if state.ii.dtype != torch.int32 or state.mu.shape != (C,) or state.p.re.shape != (C, 3):
+        raise ValueError("clock recovery: inconsistent state")
+
+    f32 = lambda v: float(np.float32(v))
+    xr, xi = x.re.contiguous(), x.im.contiguous()
+    tr = state.tail.re.t().contiguous()                  # (NTAIL, C)
+    ti = state.tail.im.t().contiguous()
+    new = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=dev)
+    sr, si = new(C, S), new(C, S)
+    nvalid = new(C, dt=torch.int32)
+    mu_o, om_o, ii_o = new(C), new(C), new(C, dt=torch.int32)
+    pr_o, pi_o, cr_o, ci_o = new(C, 3), new(C, 3), new(C, 3), new(C, 3)
+    ins = [
+        tr, ti, xr, xi, mmse_table(dev),
+        state.mu.contiguous(), state.omega.contiguous(), state.ii.contiguous(),
+        state.p.re.contiguous(), state.p.im.contiguous(),
+        state.c.re.contiguous(), state.c.im.contiguous(),
+    ]
+    outs = [sr, si, nvalid, mu_o, om_o, ii_o, pr_o, pi_o, cr_o, ci_o]
+    ptrs = (ctypes.c_void_p * 22)(*[t.data_ptr() for t in ins + outs])
+    with torch.cuda.device(dev):
+        err = _lib()(
+            ctypes.cast(ptrs, ctypes.c_void_p), T, C, S,
+            f32(params.omega), f32(params.omega * params.omega_relative_limit),
+            f32(params.gain_omega), f32(params.gain_mu),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "xrit_clock")
+    launches += 1
+    valid = torch.arange(S, device=dev)[None, :] < nvalid[:, None]
+    new_state = ClockRecoveryState(
+        mu=mu_o, omega=om_o, ii=ii_o,
+        p=CF32(pr_o, pi_o), c=CF32(cr_o, ci_o),
+        tail=CF32(xr[T - NTAIL :].t().contiguous(), xi[T - NTAIL :].t().contiguous()),
+    )
+    return CF32(sr, si), valid, new_state
+
+
+@torch.no_grad()
+def clock_recovery_block_kernel_batch(
+    x: CF32,
+    state: ClockRecoveryState,
+    params: ClockRecoveryParams,
+    num_slots: int,
+):
+    """`(C, T)` entry: drop-in for `clock_recovery_block_batch`."""
+    if not x.re.is_cuda:
+        return clock_recovery_block_batch(x, state, params, num_slots)
+    xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+    return clock_recovery_block_kernel_batch_cl(xT, state, params, num_slots)

@@ -1,0 +1,196 @@
+"""Mueller & Muller symbol-clock recovery (plain per-symbol recursion).
+
+Counterpart of `xritdemod_tpu/ops/clock_recovery.py` (GNU Radio
+`clock_recovery_mm_cc` semantics), mmse interpolator.  Per output symbol:
+
+    p0 = interp(x[ii .. ii+7], mu);  c0 = slicer(p0)   # (re>0, im>0) -> {0,1}
+    u  = (p0 - p2)*conj(c1) - (c0 - c2)*conj(p1)       # lag-1 / lag-2 history
+    e  = clip(Re(u), +-1)
+    omega += gain_omega*e;  omega = omega_mid + clip(omega - omega_mid, +-lim)
+    mu += omega + gain_mu*e;  ii += floor(mu);  mu -= floor(mu)
+
+The interpolator is the tabulated 8-tap MMSE filter (`ops/interp_taps.py`):
+row `floor(mu*128 + 0.5)` clipped to [0, 128] of a 129-row table, used as
+is.  Symbols are emitted while `ii < n - 8` into fixed-capacity slots; the
+valid mask is a per-channel prefix, invalid slots are zero and leave the
+state untouched.  Block boundaries carry a fixed `NTAIL`-sample input tail.
+
+The JAX package stages dense windows because per-channel offsets serialise
+on its device; here each channel simply indexes its own `ii`.  This plain
+form loops over the symbol slots in Python, vectorised over channels, and
+serves the CPU and the tests; `ops/clock_cuda.py` is the GPU form.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from xritdemod_tpu_torch.ops.interp_taps import NSTEPS, mmse_taps_table
+from xritdemod_tpu_torch.utils.cplx import CF32
+
+__all__ = [
+    "ClockRecoveryParams",
+    "ClockRecoveryState",
+    "clock_recovery_init",
+    "clock_recovery_block_batch",
+    "mmse_table",
+    "max_symbols",
+    "NTAIL",
+    "INTERP_TAPS",
+]
+
+INTERP_TAPS = 8
+# Fixed-size carry of raw samples across block boundaries.  Must exceed
+# INTERP_TAPS + ceil(max omega); 32 is comfortably safe for sps <= 20.
+NTAIL = 32
+
+
+_tables: dict = {}
+
+
+def mmse_table(device) -> torch.Tensor:
+    """The 129 x 8 MMSE tap table on `device` (kept per device)."""
+    tab = _tables.get(device)
+    if tab is None:
+        tab = torch.from_numpy(mmse_taps_table()).to(device).contiguous()
+        _tables[device] = tab
+    return tab
+
+
+def _mmse_rows(mu: torch.Tensor) -> torch.Tensor:
+    """Tabulated MMSE tap rows for `mu` of any shape -> `mu.shape + (8,)`.
+
+    imu = floor(mu*128 + 0.5) (not round-half-even), row lookup by index.
+    """
+    tab = mmse_table(mu.device)                                       # (129, 8)
+    imu = torch.clamp(torch.floor(mu * NSTEPS + 0.5).to(torch.int64), 0, NSTEPS)
+    return tab[imu]
+
+
+class ClockRecoveryParams(NamedTuple):
+    omega: float                 # nominal samples/symbol (omega_mid)
+    gain_omega: float
+    gain_mu: float
+    omega_relative_limit: float = 0.005
+
+
+class ClockRecoveryState(NamedTuple):
+    mu: torch.Tensor      # (C,) f32
+    omega: torch.Tensor   # (C,) f32
+    ii: torch.Tensor      # (C,) i32, index into [tail | block]
+    p: CF32               # (C, 3) sample history  [1 back, 2 back, 3 back]
+    c: CF32               # (C, 3) slicer history
+    tail: CF32            # (C, NTAIL) last samples of previous extended block
+
+
+def clock_recovery_init(
+    params: ClockRecoveryParams, mu: float = 0.5, channels: int = 1, device="cpu"
+) -> ClockRecoveryState:
+    f = lambda shape, v=0.0: torch.full(shape, v, dtype=torch.float32, device=device)
+    Cn = channels
+    return ClockRecoveryState(
+        mu=f((Cn,), mu),
+        omega=f((Cn,), params.omega),
+        ii=torch.full((Cn,), NTAIL, dtype=torch.int32, device=device),
+        p=CF32(f((Cn, 3)), f((Cn, 3))),
+        c=CF32(f((Cn, 3)), f((Cn, 3))),
+        tail=CF32(f((Cn, NTAIL)), f((Cn, NTAIL))),
+    )
+
+
+def max_symbols(block_len: int, params: ClockRecoveryParams) -> int:
+    """Static output-slot budget for a block of `block_len` input samples."""
+    min_omega = params.omega * (1.0 - params.omega_relative_limit)
+    return int(math.ceil((block_len + NTAIL) / min_omega)) + 4
+
+
+@torch.no_grad()
+def clock_recovery_block_batch(
+    x: CF32,
+    state: ClockRecoveryState,
+    params: ClockRecoveryParams,
+    num_slots: int,
+):
+    """Recover symbols from one `(C, T)` CF32 block, `(C,)`-leading state.
+
+    Returns `(symbols, valid, new_state)`: `symbols` `(C, num_slots)` CF32,
+    `valid` `(C, num_slots)` bool marking real outputs (a prefix per
+    channel; the count depends on the data).
+    """
+    f32 = lambda v: float(np.float32(v))
+    omega_mid = f32(params.omega)
+    omega_lim = f32(params.omega * params.omega_relative_limit)
+    gain_omega = f32(params.gain_omega)
+    gain_mu = f32(params.gain_mu)
+
+    xr = torch.cat([state.tail.re, x.re], dim=-1)          # (C, n)
+    xi = torch.cat([state.tail.im, x.im], dim=-1)
+    Cn, n = xr.shape
+    limit = n - INTERP_TAPS
+    dev = xr.device
+    koff = torch.arange(INTERP_TAPS, device=dev)
+
+    mu, omega, ii = state.mu, state.omega, state.ii.to(torch.int64)
+    p1r, p2r, p3r = state.p.re.unbind(-1)
+    p1i, p2i, p3i = state.p.im.unbind(-1)
+    c1r, c2r, c3r = state.c.re.unbind(-1)
+    c1i, c2i, c3i = state.c.im.unbind(-1)
+    sr = torch.zeros((num_slots, Cn), dtype=torch.float32, device=dev)
+    si = torch.zeros_like(sr)
+    vd = torch.zeros((num_slots, Cn), dtype=torch.bool, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    for j in range(num_slots):
+        valid = ii < limit
+        idx = torch.clamp(ii, 0, limit - 1)[:, None] + koff       # (C, 8)
+        t = _mmse_rows(mu)                                         # (C, 8)
+        wr = torch.gather(xr, 1, idx) * t
+        wi = torch.gather(xi, 1, idx) * t
+        p0r, p0i = wr[:, 0], wi[:, 0]
+        for k in range(1, INTERP_TAPS):
+            p0r = p0r + wr[:, k]
+            p0i = p0i + wi[:, k]
+        c0r = torch.where(p0r > 0, one, zero)
+        c0i = torch.where(p0i > 0, one, zero)
+        e = (
+            (p0r - p2r) * c1r
+            + (p0i - p2i) * c1i
+            - ((c0r - c2r) * p1r + (c0i - c2i) * p1i)
+        )
+        e = torch.clamp(e, -1.0, 1.0)
+        new_omega = omega + gain_omega * e
+        new_omega = omega_mid + torch.clamp(new_omega - omega_mid, -omega_lim, omega_lim)
+        new_mu = mu + new_omega + gain_mu * e
+        adv = torch.floor(new_mu)
+        new_ii = torch.clamp(ii + adv.to(torch.int64), min=0)
+        new_mu = new_mu - adv
+
+        sr[j] = torch.where(valid, p0r, zero)
+        si[j] = torch.where(valid, p0i, zero)
+        vd[j] = valid
+        mu = torch.where(valid, new_mu, mu)
+        omega = torch.where(valid, new_omega, omega)
+        ii = torch.where(valid, new_ii, ii)
+        p1r, p2r, p3r = (torch.where(valid, p0r, p1r), torch.where(valid, p1r, p2r),
+                         torch.where(valid, p2r, p3r))
+        p1i, p2i, p3i = (torch.where(valid, p0i, p1i), torch.where(valid, p1i, p2i),
+                         torch.where(valid, p2i, p3i))
+        c1r, c2r, c3r = (torch.where(valid, c0r, c1r), torch.where(valid, c1r, c2r),
+                         torch.where(valid, c2r, c3r))
+        c1i, c2i, c3i = (torch.where(valid, c0i, c1i), torch.where(valid, c1i, c2i),
+                         torch.where(valid, c2i, c3i))
+
+    new_state = ClockRecoveryState(
+        mu=mu,
+        omega=omega,
+        ii=(ii - (n - NTAIL)).to(torch.int32),   # re-based onto the next block
+        p=CF32(torch.stack([p1r, p2r, p3r], -1), torch.stack([p1i, p2i, p3i], -1)),
+        c=CF32(torch.stack([c1r, c2r, c3r], -1), torch.stack([c1i, c2i, c3i], -1)),
+        tail=CF32(xr[:, -NTAIL:].contiguous(), xi[:, -NTAIL:].contiguous()),
+    )
+    return CF32(sr.t().contiguous(), si.t().contiguous()), vd.t().contiguous(), new_state

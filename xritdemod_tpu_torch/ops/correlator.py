@@ -1,0 +1,77 @@
+"""Frame-sync correlation against 64-bit coded-domain unique words.
+
+Counterpart of `xritdemod_tpu/ops/correlator.py`: hard signs (+1 for bit 0 /
+non-negative symbol, -1 for bit 1 / negative symbol) correlated against +-1
+word templates at every lag in one batched pass; the decoder flywheel of the
+reference (decoder/src/newdecoder.cpp:218-247) collapses into an argmax.
+The products are +-1 and the sums at most 64, so the result is exact in any
+float format the convolution backend picks.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from xritdemod_tpu_torch.utils.bits import bits_of_u64
+
+__all__ = ["make_templates", "correlate", "best_correlation", "UW_BITS"]
+
+UW_BITS = 64
+
+
+def make_templates(words: list[int], device="cpu") -> torch.Tensor:
+    """64-bit unique words -> `(W, 64)` float32 +-1 templates.
+
+    Bit 1 expects a negative soft symbol (template -1); bit 0 positive.
+    """
+    t = np.stack([1.0 - 2.0 * bits_of_u64(w).astype(np.float32) for w in words])
+    return torch.from_numpy(t).to(device)
+
+
+def _hard_signs(soft: torch.Tensor) -> torch.Tensor:
+    """Soft symbols -> +-1 hard-decision signs (0 decides as bit 0 / +1)."""
+    one = torch.ones((), dtype=torch.float32, device=soft.device)
+    return torch.where(soft < 0, -one, one)
+
+
+def correlate(soft: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
+    """Count matching bits for every word at every lag.
+
+    Args:
+      soft: `(..., L)` soft symbols (only signs are used).
+      templates: `(W, 64)` +-1 word templates from `make_templates`.
+
+    Returns:
+      `(..., W, L-63)` float32 match counts in [0, 64].
+    """
+    lead = soft.shape[:-1]
+    L = soft.shape[-1]
+    s = _hard_signs(soft).reshape(-1, 1, L)
+    dot = F.conv1d(s, templates[:, None, :])              # (B, W, P)
+    counts = (UW_BITS + dot) * 0.5
+    return counts.reshape(lead + counts.shape[1:])
+
+
+def best_correlation(counts: torch.Tensor):
+    """`(..., W, P)` counts -> (corr, word, pos), each `(...)`.
+
+    The highest match count wins; ties resolve to the lowest word then the
+    lowest position (newdecoder.cpp:239-241).  `torch.argmax` does not
+    promise the first index among ties, so the first maximum is found by
+    comparing against the maximum.
+    """
+    W, P = counts.shape[-2], counts.shape[-1]
+    flat = counts.reshape(counts.shape[:-2] + (W * P,))
+    idx = first_argmax(flat)
+    corr = torch.gather(flat, -1, idx[..., None])[..., 0]
+    return corr, (idx // P).to(torch.int32), (idx % P).to(torch.int32)
+
+
+def first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the FIRST maximum along the last axis (int64)."""
+    n = x.shape[-1]
+    mx = x.max(dim=-1, keepdim=True).values
+    iota = torch.arange(n, device=x.device)
+    return torch.where(x == mx, iota, n).min(dim=-1).values

@@ -1,0 +1,107 @@
+"""Second-order BPSK Costas carrier-recovery loop.
+
+Counterpart of `xritdemod_tpu/ops/costas.py::costas_block` (GNU Radio
+`costas_loop_cc(loop_bw, order=2)` semantics):
+
+    gains from loop bandwidth Bn with damping zeta = sqrt(2)/2:
+        denom = 1 + 2*zeta*Bn + Bn^2
+        alpha = 4*zeta*Bn / denom          (phase gain)
+        beta  = 4*Bn^2  / denom            (frequency gain)
+    per sample:
+        y[n]   = x[n] * exp(-i*phase)
+        e      = clip(Re(y)*Im(y), +-1)
+        freq  += beta * e;  freq = clip(freq, +-1)
+        phase += freq + alpha * e;  one +-2pi wrap step
+
+This plain form loops over time in Python (vectorised over the leading
+axes); on the GPU the recursion runs inside the fused front end
+(`ops/frontend_cuda.py`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from xritdemod_tpu_torch.utils.cplx import CF32
+
+__all__ = [
+    "CostasParams",
+    "CostasState",
+    "costas_init",
+    "costas_block",
+    "costas_gains",
+    "costas_steps",
+]
+
+
+class CostasParams(NamedTuple):
+    alpha: float   # phase gain
+    beta: float    # frequency gain
+    freq_min: float = -1.0
+    freq_max: float = 1.0
+
+
+def costas_gains(loop_bw: float) -> CostasParams:
+    """GR blocks::control_loop::update_gains with damping sqrt(2)/2."""
+    damping = math.sqrt(2.0) / 2.0
+    denom = 1.0 + 2.0 * damping * loop_bw + loop_bw * loop_bw
+    return CostasParams(
+        alpha=(4.0 * damping * loop_bw) / denom,
+        beta=(4.0 * loop_bw * loop_bw) / denom,
+    )
+
+
+class CostasState(NamedTuple):
+    phase: torch.Tensor   # (...,) float32
+    freq: torch.Tensor    # (...,) float32
+
+
+def costas_init(leading_shape: tuple = (), device="cpu") -> CostasState:
+    return CostasState(
+        phase=torch.zeros(tuple(leading_shape), dtype=torch.float32, device=device),
+        freq=torch.zeros(tuple(leading_shape), dtype=torch.float32, device=device),
+    )
+
+
+_TWO_PI = float(np.float32(2.0 * math.pi))
+
+
+def costas_steps(xr_t, xi_t, state: CostasState, params: CostasParams):
+    """Run the loop over time-major `(T, ...)` planes; returns the rotated
+    planes and the new state."""
+    alpha = float(np.float32(params.alpha))
+    beta = float(np.float32(params.beta))
+    phase, freq = state.phase, state.freq
+    yr_t = torch.empty_like(xr_t)
+    yi_t = torch.empty_like(xi_t)
+    zero = torch.zeros((), dtype=torch.float32, device=xr_t.device)
+    for n in range(xr_t.shape[0]):
+        xr, xi = xr_t[n], xi_t[n]
+        c = torch.cos(phase)
+        s = torch.sin(phase)
+        yr = xr * c + xi * s          # y = x * exp(-i*phase)
+        yi = xi * c - xr * s
+        err = torch.clamp(yr * yi, -1.0, 1.0)
+        freq = torch.clamp(freq + beta * err, params.freq_min, params.freq_max)
+        phase = phase + freq + alpha * err
+        phase = phase - torch.where(phase > _TWO_PI, _TWO_PI, zero)
+        phase = phase + torch.where(phase < -_TWO_PI, _TWO_PI, zero)
+        yr_t[n] = yr
+        yi_t[n] = yi
+    return yr_t, yi_t, CostasState(phase=phase, freq=freq)
+
+
+@torch.no_grad()
+def costas_block(x: CF32, state: CostasState, params: CostasParams):
+    """Run the Costas loop over a `(..., T)` CF32 block.
+
+    Returns `(y, new_state)` with y the carrier-corrected samples.
+    """
+    yr_t, yi_t, new_state = costas_steps(
+        x.re.movedim(-1, 0), x.im.movedim(-1, 0), state, params
+    )
+    return CF32(yr_t.movedim(0, -1), yi_t.movedim(0, -1)), new_state

@@ -1,0 +1,139 @@
+"""Fused demodulator front end: AGC -> RRC FIR -> Costas on `(T, C)` planes.
+
+Replaces `xritdemod_tpu/ops/frontend_pallas.py::demod_frontend_pallas`
+(`_frontend_kernel`), exact per-sample forms (its `block_k=0`, float32).
+The kernels are in `csrc/frontend.cu`: AGC and Costas are per-channel
+recursions (one thread per channel, T dependent steps), the RRC product is a
+direct N-tap dot over `[history | AGC output]`, parallel over (t, c).
+
+What bounds it on an H100: by bytes the work is small (the block is read
+once and written once; the AGC output makes one more round trip through the
+FIR window buffer), so the floor is memory time; in practice the two
+sequential stages are bound by their T-step dependent chains with only C
+threads in flight.  The channels-last layout keeps every access a coalesced
+row, and one warp per block spreads the channel groups over the SMs.
+
+The plain version below composes the exact recursions of `ops/agc.py` and
+`ops/costas.py` with the same tap order; a CPU tensor takes it, a CUDA
+tensor takes the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from xritdemod_tpu_torch import _build
+from xritdemod_tpu_torch.ops.agc import AgcParams, agc_gains
+from xritdemod_tpu_torch.ops.costas import CostasParams, CostasState, costas_steps
+from xritdemod_tpu_torch.utils.cplx import CF32
+
+__all__ = ["demod_frontend", "demod_frontend_plain", "launches"]
+
+launches = 0
+
+
+def _fir_cl(ext: torch.Tensor, taps: torch.Tensor, T: int) -> torch.Tensor:
+    """`y[t] = sum_k taps[k] * ext[t + k]`, taps accumulated in ascending k."""
+    acc = taps[0] * ext[0:T]
+    for k in range(1, taps.shape[0]):
+        acc = acc + taps[k] * ext[k : k + T]
+    return acc
+
+
+@torch.no_grad()
+def demod_frontend_plain(
+    x: CF32, gain, rrc_hist: CF32, costas_state: CostasState,
+    agc: AgcParams, taps: torch.Tensor, costas: CostasParams,
+):
+    """Plain PyTorch version of `demod_frontend` (same contract)."""
+    T = x.re.shape[0]
+    nh = taps.shape[0] - 1
+    gains, new_gain = agc_gains(x.abs(), gain, agc)
+    er = torch.cat([rrc_hist.re.t(), x.re * gains])       # (nh+T, C)
+    ei = torch.cat([rrc_hist.im.t(), x.im * gains])
+    fr = _fir_cl(er, taps, T)
+    fi = _fir_cl(ei, taps, T)
+    yr, yi, new_costas = costas_steps(fr, fi, costas_state, costas)
+    new_hist = CF32(er[T:].t().contiguous(), ei[T:].t().contiguous())
+    return CF32(yr, yi), new_gain, new_hist, new_costas
+
+
+def _lib():
+    fn = _build.load("frontend").xrit_frontend
+    if not fn.argtypes:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
+            + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+@torch.no_grad()
+def demod_frontend(
+    x: CF32, gain, rrc_hist: CF32, costas_state: CostasState,
+    agc: AgcParams, taps: torch.Tensor, costas: CostasParams,
+):
+    """AGC -> RRC -> Costas over a channels-last `(T, C)` block.
+
+    Args:
+      x: `(T, C)` CF32 block (channels-last), float32.
+      gain: `(C,)` AGC gain state.
+      rrc_hist: `(C, N-1)` CF32 FIR history (the last N-1 AGC outputs).
+      costas_state: `(C,)` phase/freq.
+      taps: `(N,)` float32 RRC taps on the block's device.
+
+    Returns `(y, gain', rrc_hist', costas_state')` with `y` `(T, C)` CF32.
+    """
+    global launches
+    if not x.re.is_cuda:
+        return demod_frontend_plain(x, gain, rrc_hist, costas_state, agc, taps, costas)
+    T, C = x.re.shape
+    N = int(taps.shape[0])
+    nh = N - 1
+    dev = x.re.device
+    tensors = dict(
+        re=x.re, im=x.im, gain=gain, hist_re=rrc_hist.re, hist_im=rrc_hist.im,
+        phase=costas_state.phase, freq=costas_state.freq, taps=taps,
+    )
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on {t.device}")
+    if x.im.shape != (T, C) or gain.shape != (C,) or rrc_hist.re.shape != (C, nh):
+        raise ValueError("front end: inconsistent shapes")
+    # Every tensor handed to the kernel stays referenced until the launch.
+    xr, xi = x.re.contiguous(), x.im.contiguous()
+    hr, hi = rrc_hist.re.contiguous(), rrc_hist.im.contiguous()
+    taps_c, gain_c = taps.contiguous(), gain.contiguous()
+    phase_c, freq_c = costas_state.phase.contiguous(), costas_state.freq.contiguous()
+    er = torch.empty((T + nh, C), dtype=torch.float32, device=dev)
+    ei = torch.empty_like(er)
+    yr = torch.empty((T, C), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    gain_out = torch.empty_like(gain)
+    phase_out = torch.empty_like(gain)
+    freq_out = torch.empty_like(gain)
+    with torch.cuda.device(dev):
+        err = _lib()(
+            xr.data_ptr(), xi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+            er.data_ptr(), ei.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            taps_c.data_ptr(), gain_c.data_ptr(), gain_out.data_ptr(),
+            phase_c.data_ptr(), freq_c.data_ptr(),
+            phase_out.data_ptr(), freq_out.data_ptr(),
+            T, C, N,
+            _f32(agc.rate), _f32(agc.reference), _f32(agc.max_gain),
+            _f32(costas.alpha), _f32(costas.beta),
+            _f32(costas.freq_min), _f32(costas.freq_max),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "xrit_frontend")
+    launches += 1
+    new_hist = CF32(er[T:].t().contiguous(), ei[T:].t().contiguous())
+    return CF32(yr, yi), gain_out, new_hist, CostasState(phase_out, freq_out)

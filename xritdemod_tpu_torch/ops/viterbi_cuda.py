@@ -1,0 +1,114 @@
+"""CUDA Viterbi decoder (K=7, r=1/2): wrapper, windowing and plain version.
+
+Replaces `xritdemod_tpu/ops/viterbi_pallas.py` (`_decode_bits` with its
+`_fwd_kernel`, `_fwd_kernel_reg` and `_back_kernel`).  The kernel is
+`csrc/viterbi.cu`: one warp per window runs the forward add-compare-select
+over all steps and then the traceback.  The windowing of
+`viterbi_decode_segmented` and the corrected-bit count stay plain torch.
+
+What bounds it on an H100: bytes are small (8 B of soft symbols in, 8 B of
+decisions out and back, 1 B of bits per step per window), so the trellis
+itself does: 64 add-compare-selects per step per window, and per window a
+chain of T dependent steps.  The design puts every window in its own warp
+so 8192 windows fill the card's warp slots, and keeps metrics in registers.
+
+The plain version is `ops/viterbi.viterbi_bits`; the kernel equals it bit
+for bit.  A CPU tensor takes the plain version, a CUDA tensor the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from xritdemod_tpu_torch import _build
+from xritdemod_tpu_torch.ops.viterbi import corrected_bits, viterbi_bits
+
+__all__ = [
+    "decode_bits",
+    "decode_bits_plain",
+    "viterbi_decode_kernel",
+    "viterbi_decode_segmented",
+    "launches",
+]
+
+launches = 0
+
+decode_bits_plain = viterbi_bits
+
+
+def _lib():
+    lib = _build.load("viterbi")
+    fn = lib.xrit_viterbi
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_bits(soft: torch.Tensor) -> torch.Tensor:
+    """`(NW, 2T)` float32 soft windows -> `(NW, T)` uint8 survivor bits."""
+    global launches
+    if soft.dtype != torch.float32 or soft.ndim != 2 or soft.shape[1] % 2:
+        raise ValueError(f"need (NW, 2T) float32, got {tuple(soft.shape)} {soft.dtype}")
+    if not soft.is_cuda:
+        return decode_bits_plain(soft)
+    soft = soft.contiguous()
+    NW, T = soft.shape[0], soft.shape[1] // 2
+    dec = torch.empty((NW, T, 2), dtype=torch.int32, device=soft.device)
+    bits = torch.empty((NW, T), dtype=torch.uint8, device=soft.device)
+    with torch.cuda.device(soft.device):
+        err = _lib()(
+            soft.data_ptr(), dec.data_ptr(), bits.data_ptr(), NW, T,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "xrit_viterbi")
+    launches += 1
+    return bits
+
+
+def _errors(soft: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    return corrected_bits(bits, (soft < 0).to(torch.uint8))
+
+
+@torch.no_grad()
+def viterbi_decode_kernel(soft: torch.Tensor):
+    """Drop-in for `viterbi.viterbi_decode`: `(B, 2T)` soft -> bits, errors,
+    one window per frame."""
+    soft = soft.to(torch.float32)
+    bits = decode_bits(soft)
+    return bits, _errors(soft, bits)
+
+
+def segment_windows(soft: torch.Tensor, segments: int, overlap: int):
+    """`(B, 2T)` -> `(B*S, 2*Lw)` overlapped windows and (Tseg, Lw)."""
+    B, T2 = soft.shape
+    T = T2 // 2
+    S, W = segments, overlap
+    Tseg = -(-T // S)
+    pad_t = S * Tseg - T
+    Lw = W + Tseg + W
+    xp = torch.nn.functional.pad(soft.reshape(B, T, 2), (0, 0, W, W + pad_t))
+    wins = torch.stack(
+        [xp[:, s * Tseg : s * Tseg + Lw] for s in range(S)], dim=1
+    )                                                  # (B, S, Lw, 2)
+    return wins.reshape(B * S, 2 * Lw), Tseg, Lw
+
+
+@torch.no_grad()
+def viterbi_decode_segmented(soft: torch.Tensor, segments: int = 8, overlap: int = 128):
+    """Segment-parallel Viterbi: same contract as `viterbi_decode_kernel`.
+
+    Each frame's T steps split into `segments` windows decoded concurrently;
+    every window is extended by `overlap` warm-up steps before its kept
+    region and `overlap` tail steps after it (so traceback enters the kept
+    region converged).  With overlap=128 (~21 constraint lengths) the
+    output equals the exact decoder's at any usable SNR.
+    """
+    soft = soft.to(torch.float32)
+    B, T = soft.shape[0], soft.shape[1] // 2
+    flat, Tseg, _ = segment_windows(soft, segments, overlap)
+    bits_all = decode_bits(flat)                       # (B*S, Lw)
+    bits = bits_all[:, overlap : overlap + Tseg].reshape(B, segments * Tseg)[:, :T]
+    return bits, _errors(soft, bits)
