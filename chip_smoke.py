@@ -4,16 +4,24 @@
     python3 chip_smoke.py            # needs one CUDA device, nvcc, no network
     python3 chip_smoke.py --profile  # also: device time of a step by kernel name
 
-Builds the four CUDA kernels from `xritdemod_tpu_torch/csrc/`, holds each
-against its plain PyTorch version on the card at the shapes the main path
-gives it, then drives the main path — `FusedReceiver.step`, and one block of
-`step_int8`, at the shipped LRIT operating point, C = 2048 channels x 131072
-samples per block — on synthesised captures and checks every recovered VCDU
-bit for bit against what was transmitted.  Every phase prints one JSON line; any failure exits
-non-zero.  The last line is
+Builds the six CUDA libraries from `xritdemod_tpu_torch/csrc/`, holds every
+kernel against its plain PyTorch version on the card at the shapes its path
+gives it (and at small ragged shapes), then drives two paths at the shipped
+LRIT operating point, C = 2048 channels x 131072 samples per block, on
+synthesised captures:
+
+  - the fused receive, `FusedReceiver.step` and one block of `step_int8`;
+  - the split receive, `Demodulator(frontend_kernel="split").block_batch`
+    -> `quantize_symbols` -> int8 symbols -> one `StreamDecoder` per channel
+    for 16 of the channels,
+
+and checks every recovered VCDU bit for bit against what was transmitted.
+A third, short phase runs the roll probe (`tools/roll_probe.py`).  Every
+phase prints one JSON line; any failure exits non-zero.  The last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
-Imports only the port (`xritdemod_tpu_torch`), never JAX.
+Imports only the port (`xritdemod_tpu_torch`), never JAX.  The global TF32
+flags stay at PyTorch's defaults: what needs full float32 asks for it itself.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device; this script runs on a GPU only\n")
@@ -32,11 +41,16 @@ if not torch.cuda.is_available():
 
 from xritdemod_tpu_torch import _build, tx
 from xritdemod_tpu_torch import constants as K
-from xritdemod_tpu_torch.models.decoder import DecoderConfig
-from xritdemod_tpu_torch.models.demodulator import DemodConfig
+from xritdemod_tpu_torch.models.decoder import DecoderConfig, StreamDecoder
+from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, quantize_symbols
 from xritdemod_tpu_torch.models.receiver import FusedReceiver
-from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, ring_cuda, viterbi_cuda
+from xritdemod_tpu_torch.ops import agc as agc_op
+from xritdemod_tpu_torch.ops import costas as costas_op
+from xritdemod_tpu_torch.ops import (
+    clock_cuda, filters, fir, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda,
+)
 from xritdemod_tpu_torch.ops.clock_recovery import NTAIL
+from xritdemod_tpu_torch.tools import roll_probe
 from xritdemod_tpu_torch.utils.cplx import CF32, quantize_iq_s8, to_complex
 
 SEED = 20240
@@ -46,6 +60,7 @@ BLOCKS = 6               # `step`: one warm-up block + five steady blocks
 INT8_BLOCKS = 1          # then `step_int8` on the capture's next block
 PROFILE_STEPS = 3        # further blocks of the capture, for --profile
 STREAMS = 4              # distinct transmitted streams tiled over the channels
+STREAM_DECODERS = 16     # channels of the split path that feed a StreamDecoder
 MAX_DELAY = 69_649       # samples; per-channel delays spread over ~1 frame
 # Noise per I/Q component (signal amplitude 0.3): one part in each stream, one
 # part independent per channel; together they put Es/N0 near 7.7 dB.
@@ -162,9 +177,13 @@ def make_block(base: CF32, delays: np.ndarray, b: int, gen: torch.Generator) -> 
 # --------------------------------------------------------------------------
 
 def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
-    """Each kernel against its plain version on the card.  The front end and
-    the clock take the capture's second block with the state the first block
-    left (loops pulled in, as in steady reception)."""
+    """Each kernel against its plain version on the card.  The front end,
+    the standalone AGC and Costas stages and the clock take the capture's
+    second block with the state the first block left (loops pulled in, as in
+    steady reception).  One run of the plain front end serves three kernels:
+    its AGC stage is the plain standalone AGC on the same block and gain, and
+    its Costas stage, fed its own filter output, the plain standalone Costas
+    loop (`demod_frontend_plain(stages=...)`)."""
     demod = rx._demod
     C, T = CHANNELS, BLOCK_LEN
     _, _, st = demod.block_batch(x0, demod.init_state_batch(C))
@@ -175,7 +194,9 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     fe_args = (xT, st.agc_gain, st.rrc_hist, st.costas, demod._agc, demod._rrc_taps, demod._costas)
     k_out = frontend_cuda.demod_frontend(*fe_args)
     torch.cuda.synchronize()
-    p_out, plain_ms = once_ms(lambda: frontend_cuda.demod_frontend_plain(*fe_args))
+    stages: dict = {}
+    p_out, plain_ms = once_ms(
+        lambda: frontend_cuda.demod_frontend_plain(*fe_args, stages=stages))
     errs = [
         max_err(k_out[0].re, p_out[0].re), max_err(k_out[0].im, p_out[0].im),
         max_err(k_out[1], p_out[1]),
@@ -193,7 +214,44 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
         tolerance="atol 1e-4", ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         library_ms=None,
     ))
-    del p_out
+
+    # K5 standalone AGC on the (C, T) block: expected is the plain front
+    # end's AGC stage.
+    agc_args = (x1, st.agc_gain, demod._agc)
+    ky, kg = stream_cuda.agc_block_kernel(*agc_args)
+    errs = [max_err(ky.re, stages["agc"].re.t()), max_err(ky.im, stages["agc"].im.t()),
+            max_err(kg, p_out[1])]
+    if not max(errs) <= 1e-4:
+        fail(f"agc_block_kernel disagrees with its plain version: {errs}")
+    ms = time_ms(lambda: stream_cuda.agc_block_kernel(*agc_args), 3)
+    bms, by = bound(4 * (4 * T * C + 2 * C), T * C * 10.0)
+    rows.append(dict(
+        name="agc_block", route="cuda", source="xritdemod_tpu_torch/csrc/stream.cu",
+        replaces="xritdemod_tpu/ops/stream_pallas.py:152", max_abs_err=max(errs),
+        tolerance="atol 1e-4, gain included", ms=ms,
+        plain_ms=stages["seconds"]["agc"] * 1e3, bound_ms=bms, bound_by=by, library_ms=None,
+    ))
+    del ky, kg
+
+    # K6 standalone Costas on the (C, T) filter output: expected is the plain
+    # front end's Costas stage.
+    fir_ct = CF32(stages["fir"].re.t().contiguous(), stages["fir"].im.t().contiguous())
+    cos_args = (fir_ct, st.costas, demod._costas)
+    ky, ks_ = stream_cuda.costas_block_kernel(*cos_args)
+    errs = [max_err(ky.re, p_out[0].re.t()), max_err(ky.im, p_out[0].im.t()),
+            max_err(ks_.phase, p_out[3].phase), max_err(ks_.freq, p_out[3].freq)]
+    if not max(errs) <= 1e-4:
+        fail(f"costas_block_kernel disagrees with its plain version: {errs}")
+    ms = time_ms(lambda: stream_cuda.costas_block_kernel(*cos_args), 3)
+    bms, by = bound(4 * (4 * T * C + 4 * C), T * C * 40.0)
+    rows.append(dict(
+        name="costas_block", route="cuda", source="xritdemod_tpu_torch/csrc/stream.cu",
+        replaces="xritdemod_tpu/ops/stream_pallas.py:187", max_abs_err=max(errs),
+        tolerance="atol 1e-4, phase and freq included", ms=ms,
+        plain_ms=stages["seconds"]["costas"] * 1e3, bound_ms=bms, bound_by=by,
+        library_ms=None,
+    ))
+    del ky, ks_, fir_ct, cos_args, p_out, stages
 
     # K2 clock: the front end's output.
     yT = k_out[0]
@@ -349,7 +407,34 @@ def check_ragged(rx: FusedReceiver) -> dict:
         fail("ragged ring differs from its plain version")
     out["ring"] = 0.0
 
-    for nw, steps in ((7, 101), (3, K.FRAME_BITS + 32)):
+    # The standalone stages on (C, T), against `agc_block` / `costas_block`.
+    xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+    ka = stream_cuda.agc_block_kernel(xc, args[1], demod._agc)
+    pa = agc_op.agc_block(xc, args[1], demod._agc)
+    out["agc_block"] = max(max_err(ka[0].re, pa[0].re), max_err(ka[0].im, pa[0].im),
+                           max_err(ka[1], pa[1]))
+    cst = costas_op.CostasState(rnd(C, scale=2.0), rnd(C, scale=0.01))
+    kc = stream_cuda.costas_block_kernel(xc, cst, demod._costas)
+    pc = costas_op.costas_block(xc, cst, demod._costas)
+    out["costas_block"] = max(max_err(kc[0].re, pc[0].re), max_err(kc[0].im, pc[0].im),
+                              max_err(kc[1].phase, pc[1].phase),
+                              max_err(kc[1].freq, pc[1].freq))
+
+    # The roll: ragged lengths, amounts 0, 1, L-1, beyond one turn, negative.
+    for Cr_, L_ in ((5, 37), (3, 1000), (2, 2049)):
+        words = torch.randint(-(1 << 31), (1 << 31) - 1, (Cr_, L_), generator=cpu).to(
+            torch.int32).to(DEV)
+        amt = torch.tensor([0, 1, L_ - 1, L_ + 3, -2][:Cr_], dtype=torch.int32, device=DEV)
+        for dt in (torch.int32, torch.float32, torch.uint32):
+            kr = roll_probe.barrel(words.view(dt), amt)
+            if kr.dtype != dt or not torch.equal(
+                    kr.view(torch.int32), roll_probe.barrel_plain(words, amt)):
+                fail(f"ragged roll ({Cr_} x {L_}, {dt}) differs from its plain version")
+    out["roll"] = 0.0
+
+    # Viterbi: odd sizes, and the window shapes `decode_block` gives (16
+    # windows per frame of 770 steps: 128 windows for 8 frames, 16 for one).
+    for nw, steps in ((7, 101), (3, K.FRAME_BITS + 32), (128, 770), (16, 770)):
         soft = rnd(nw, 2 * steps, scale=1.0)
         if not torch.equal(viterbi_cuda.decode_bits(soft), viterbi_cuda.decode_bits_plain(soft)):
             fail(f"ragged viterbi ({nw} x {steps}) differs from its plain version")
@@ -357,6 +442,74 @@ def check_ragged(rx: FusedReceiver) -> dict:
     if not max(out.values()) <= 1e-4:
         fail(f"ragged shapes: a kernel disagrees with its plain version: {out}")
     return out
+
+
+def check_fir() -> dict:
+    """`fir.fir_block` (a cuDNN convolution) on the card against the
+    ascending-tap sum, with the RRC taps at decimation 1 and the decimating
+    low-pass at decimation 2, the global TF32 flags untouched.  Also reports,
+    without judging it, what the bare convolution gives under those flags."""
+    C, T, tol = 256, 32768, 1e-5
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    rnd = lambda *shape: 0.5 * torch.randn(shape, generator=g, device=DEV)
+    x = CF32(rnd(C, T), rnd(C, T))
+    out = dict(
+        shape=[C, T], tolerance=f"atol {tol}",
+        cudnn_allow_tf32=bool(torch.backends.cudnn.allow_tf32),
+        matmul_allow_tf32=bool(torch.backends.cuda.matmul.allow_tf32),
+    )
+    cases = (
+        ("rrc_dec1", 1, filters.rrc_taps(1.0, 1_250_000, K.LRIT_SYMBOL_RATE,
+                                         K.LRIT_RRC_ALPHA, K.RRC_TAPS)),
+        ("lowpass_dec2", 2, filters.lowpass_taps(1.0, 2_500_000, 625_000, 100e3)),
+    )
+    for name, dec, taps_np in cases:
+        taps = torch.from_numpy(taps_np).to(DEV)
+        N = int(taps.shape[0])
+        hist = CF32(rnd(C, N - 1), rnd(C, N - 1))
+        y, h = fir.fir_block(x, taps, hist, dec)
+        errs, bare = [], []
+        for yp, hp, xp, hin in ((y.re, h.re, x.re, hist.re), (y.im, h.im, x.im, hist.im)):
+            ext = torch.cat([hin, xp], dim=-1)
+            want = frontend_cuda._fir_cl(ext.t().contiguous(), taps, T)[::dec].t()
+            if yp.shape != want.shape or not torch.equal(hp, ext[:, T:]):
+                fail(f"fir {name}: wrong output shape or history")
+            errs.append(max_err(yp, want))
+            bare.append(max_err(
+                F.conv1d(ext[:, None, :], taps[None, None, :], stride=dec)[:, 0, :], want))
+        out[name] = dict(taps=N, max_abs_err=max(errs),
+                         bare_conv1d_max_abs_err_under_global_flags=max(bare))
+        if not max(errs) <= tol:
+            fail(f"fir {name}: fir_block differs from the ascending-tap sum by {max(errs)}")
+    return out
+
+
+def check_roll() -> dict:
+    """The roll kernel at the probe's shape against its plain version and
+    against `torch.gather`, exact, for the three dtypes; its time, the plain
+    version's and `torch.gather`'s."""
+    C, L = roll_probe.C, roll_probe.L
+    g = torch.Generator().manual_seed(SEED + 6)
+    words = torch.randint(-(1 << 31), (1 << 31) - 1, (C, L), generator=g).to(torch.int32).to(DEV)
+    amt = torch.randint(0, L, (C,), generator=g).to(torch.int32).to(DEV)
+    amt[:3] = torch.tensor([0, 1, L - 1], dtype=torch.int32)
+    want, plain_ms = once_ms(lambda: roll_probe.barrel_plain(words, amt))
+    for dt in (torch.float32, torch.int32, torch.uint32):
+        got = roll_probe.barrel(words.view(dt), amt)
+        if got.dtype != dt or not torch.equal(got.view(torch.int32), want):
+            fail(f"roll ({dt}) differs from its plain version")
+    if not torch.equal(roll_probe.barrel_gather(words, amt), want):
+        fail("roll: torch.gather differs from the plain version")
+    x = words.view(torch.float32)
+    ms = time_ms(lambda: roll_probe.barrel(x, amt), 20)
+    lib_ms = time_ms(lambda: roll_probe.barrel_gather(x, amt), 20)
+    bms, by = bound(2.0 * C * L * 4 + 4 * C, 0.0)
+    return dict(
+        name="roll", route="cuda", source="xritdemod_tpu_torch/csrc/roll.cu",
+        replaces="tools/roll_probe.py:44", max_abs_err=0.0, tolerance="exact",
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        shape=[C, L],
+    )
 
 
 # --------------------------------------------------------------------------
@@ -369,6 +522,9 @@ def reset_counts() -> None:
     viterbi_cuda.launches = 0
     ring_cuda.launches_append = 0
     ring_cuda.launches_extract = 0
+    stream_cuda.launches_agc = 0
+    stream_cuda.launches_costas = 0
+    roll_probe.launches = 0
 
 
 def read_counts() -> dict:
@@ -376,7 +532,22 @@ def read_counts() -> dict:
         frontend=frontend_cuda.launches, clock=clock_cuda.launches,
         viterbi=viterbi_cuda.launches, ring_append=ring_cuda.launches_append,
         ring_extract=ring_cuda.launches_extract,
+        agc_block=stream_cuda.launches_agc, costas_block=stream_cuda.launches_costas,
+        roll=roll_probe.launches,
     )
+
+
+# Which kernels each path must launch, and none of the others.
+MAIN_PATH_KERNELS = ("frontend", "clock", "viterbi", "ring_append", "ring_extract")
+SPLIT_PATH_KERNELS = ("agc_block", "costas_block", "clock", "viterbi")
+
+
+def check_counts(path: str, counts: dict, expected: tuple) -> None:
+    for name, n in counts.items():
+        if name in expected and n <= 0:
+            fail(f"the {path} never launched the {name} kernel")
+        if name not in expected and n != 0:
+            fail(f"the {path} launched the {name} kernel {n} times; it is not on that path")
 
 
 def quantize_block(x: CF32) -> np.ndarray:
@@ -398,6 +569,7 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
     sent = [set(d.values()) for d in by_counter]
     state = rx.init_state()
     frames = np.zeros(CHANNELS, np.int64)
+    delivered = [set() for _ in range(STREAM_DECODERS)]   # counters, for split_path
     int8_frames = 0
     wrong = cold_wrong = partial = cold_partial = 0
     wrong_detail: list[dict] = []
@@ -467,6 +639,8 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
                     ))
             frames[c] += 1
             int8_frames += int8
+            if c < STREAM_DECODERS and want is not None:
+                delivered[c].add(int(ctr[c, i]))
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     locked = int(state.locked.sum())
@@ -505,19 +679,199 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
         fail("a ring overflowed")
     if locked != CHANNELS:
         fail(f"only {locked} of {CHANNELS} channels locked at the end")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"the main path never launched the {name} kernel")
-    return counts, state, step_ms
+    check_counts("main path", counts, MAIN_PATH_KERNELS)
+    return counts, state, step_ms, delivered
 
 
-def profile_steps(rx: FusedReceiver, base: CF32, delays, state, step_ms: float) -> dict:
-    """`--profile`: the capture's next blocks under torch.profiler: where a
-    step's device time goes, by kernel name, and an ESTIMATE of the device's
-    idle share of a step: device busy time under the profiler against the
-    step time measured without it (`step_ms`).  The two come from different
-    runs of the step because the profiler slows the host many times over,
-    so its own wall time says nothing."""
+
+# --------------------------------------------------------------------------
+# the split receive
+# --------------------------------------------------------------------------
+
+def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi: str):
+    """The capture's blocks through the split-path demodulator at full
+    width, the first STREAM_DECODERS channels on through int8 symbols and a
+    `StreamDecoder` each.  Held against the fused-path demodulator on the
+    same blocks, against what was transmitted (every delivered VCDU bit for
+    bit) and against what the fused receive delivered for the same channels.
+
+    The two demodulators differ in the RRC's summation order only, by parts
+    in 1e7; where a channel's clock phase sits on an edge of the 1/128
+    interpolator table that picks the neighbouring tap row, and the lightly
+    damped clock loop carries the offset for a while.  So the symbol STREAMS
+    are held equal, not each block's cut of them: a symbol at a block's end
+    may fall into the next block in one path (the running counts then differ
+    by one until the other path does the same), and soft symbols are compared
+    on the channels whose running counts agree before and after the block."""
+    nblocks = BLOCKS + INT8_BLOCKS
+    soft_tol = 1e-2
+    split_cfg = DemodConfig.lrit(sample_rate=cfg.sample_rate, frontend_kernel="split")
+
+    # The fused path's symbols first, parked on the host, so that the split
+    # path below runs alone between the reset and the read of the counts.
+    fused = Demodulator(cfg, BLOCK_LEN)
+    fst = fused.init_state_batch(CHANNELS)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    fused_out = []
+    for b in range(nblocks):
+        soft, valid, fst = fused.block_batch(make_block(base, delays, b, gen), fst)
+        fused_out.append((soft.cpu(), valid.sum(-1).cpu()))
+    del fused, fst, soft, valid
+    torch.cuda.empty_cache()
+
+    by_counter = [
+        {1000 * (s + 1) + i: v[i].tobytes() for i in range(len(v))}
+        for s, v in enumerate(vcdus)
+    ]
+    sent = [set(d.values()) for d in by_counter]
+    demod = Demodulator(split_cfg, BLOCK_LEN)
+    state = demod.init_state_batch(CHANNELS)
+    decoders = [StreamDecoder(DecoderConfig(mode="lrit")) for _ in range(STREAM_DECODERS)]
+    warm_s = decoders[0].warm_up()
+    got = [[] for _ in decoders]          # per stream: (counter, whole, bytes, vcid)
+    batch_sizes: dict[int, int] = {}
+
+    def collect(c: int, batches) -> None:
+        for bt in batches:
+            fok, rs = bt.frame_ok.cpu().numpy(), bt.rs_errors.cpu().numpy()
+            ctr, vcid, vc = (a.cpu().numpy() for a in (bt.counter, bt.vcid, bt.vcdu))
+            batch_sizes[len(fok)] = batch_sizes.get(len(fok), 0) + 1
+            for i in np.nonzero(fok)[0]:
+                got[c].append((int(ctr[i]), bool((rs[i] >= 0).all()), vc[i].tobytes(),
+                               int(vcid[i])))
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    first_ms = steady_ms = decode_s = 0.0
+    soft_err, soft_far, count_diff, shifted, max_lead = [], [], 0, 0, 0
+    lead = torch.zeros(CHANNELS, dtype=torch.int64, device=DEV)   # split minus fused
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for b in range(nblocks):
+        x = make_block(base, delays, b, gen)
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        soft, valid, state = demod.block_batch(x, state)
+        e.record()
+        torch.cuda.synchronize()
+        if b == 0:
+            first_ms = a.elapsed_time(e)
+        else:
+            steady_ms += a.elapsed_time(e)
+        del x
+        n = valid.sum(-1)
+        fsoft, fn = fused_out[b]
+        fn = fn.to(DEV)
+        count_diff += int((n != fn).sum())
+        aligned = (lead == 0) & (n == fn)
+        lead += n - fn
+        max_lead = max(max_lead, int(lead.abs().max()))
+        shifted += int((~aligned).sum())
+        d = (soft - fsoft.to(DEV)).abs()[aligned]
+        soft_err.append(float(d.max()))
+        soft_far.append(float((d > 1e-5).float().mean()))
+        del d
+        q = quantize_symbols(soft[:STREAM_DECODERS]).cpu().numpy()
+        n_host = n[:STREAM_DECODERS].cpu().numpy()
+        t0 = time.perf_counter()
+        for c, sd in enumerate(decoders):
+            collect(c, sd.push(q[c, : n_host[c]]))
+        decode_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for c, sd in enumerate(decoders):
+        collect(c, sd.flush())
+    decode_s += time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    wrong = cold_wrong = partial = cold_partial = 0
+    edge_start = edge_end = interior = 0
+    frames = []
+    for c, rows in enumerate(got):
+        s = c % STREAMS
+        good = set()
+        for k, (ctr, whole, vc, vcid) in enumerate(rows):
+            first = k == 0                 # the frame decoded before any verified
+            if not whole:
+                cold_partial += first
+                partial += not first
+                continue
+            if vcid == s + 1 and by_counter[s].get(ctr) == vc:
+                good.add(ctr)
+            elif first and bytes(255 - v for v in vc) in sent[s]:
+                cold_wrong += 1            # the cold-start complement, as in main_path
+            else:
+                wrong += 1
+        frames.append(len(good))
+        # Against the fused receive: equal inside the span both delivered;
+        # they may differ at the ends (the first frame of a cold start, and
+        # what the ring still held when the fused run stopped: the flush
+        # decodes it).
+        f = fused_delivered[c]
+        if not f or not good:
+            fail(f"stream {c}: nothing to compare with the fused receive")
+        lo, hi = max(min(f), min(good)), min(max(f), max(good))
+        diff = f ^ good
+        edge_start = max(edge_start, sum(ctr < lo for ctr in diff))
+        edge_end = max(edge_end, sum(ctr > hi for ctr in diff))
+        interior += sum(lo <= ctr <= hi for ctr in diff)
+    unlocked = sum(not sd._locked for sd in decoders)
+    steady = steady_ms / (nblocks - 1)
+    say("split_path", card=smi,
+        config="DemodConfig.lrit(sample_rate=1250000, frontend_kernel='split') -> "
+               "quantize_symbols -> StreamDecoder(DecoderConfig(mode='lrit'))",
+        channels=CHANNELS, block_len=BLOCK_LEN, blocks=nblocks,
+        first_block_ms=first_ms, steady_ms_per_block=steady,
+        msamples_per_s=CHANNELS * BLOCK_LEN / (steady * 1e-3) / 1e6,
+        peak_memory_bytes=peak, launches=counts,
+        channel_blocks=CHANNELS * nblocks,
+        channel_blocks_whose_symbol_count_differs_from_the_fused_path=count_diff,
+        channel_blocks_left_out_of_the_soft_comparison=shifted,
+        largest_running_count_difference=max_lead,
+        channels_whose_running_counts_differ_at_the_end=int((lead != 0).sum()),
+        soft_tolerance=f"atol {soft_tol} against the fused path, on channels whose "
+                       "running symbol counts agree",
+        soft_max_abs_diff_per_block=soft_err, soft_share_beyond_1e_5_per_block=soft_far,
+        stream_decoders=STREAM_DECODERS, frames_per_block=decoders[0].config.frames_per_block,
+        warm_up_seconds=warm_s, decode_seconds=decode_s, batches_by_size=batch_sizes,
+        frames_per_stream=frames, wrong_frames=wrong,
+        complemented_first_frames=cold_wrong, frames_with_a_failed_rs_block=partial,
+        first_frames_with_a_failed_rs_block=cold_partial,
+        counters_differing_from_the_fused_receive=dict(
+            most_before_the_common_span_in_a_stream=edge_start,
+            most_after_it_in_a_stream=edge_end, inside_it_in_all=interior),
+        resyncs=[sd.stats.resyncs for sd in decoders], streams_unlocked_at_the_end=unlocked)
+    if max_lead > 1 or shifted > CHANNELS * nblocks // 1000:
+        fail(f"split path: symbol counts stray from the fused path's: running difference "
+             f"up to {max_lead}, {shifted} channel-blocks out of step")
+    if not max(soft_err) <= soft_tol:
+        fail(f"split path: soft symbols differ from the fused path's by {max(soft_err)}")
+    if wrong:
+        fail(f"split path: {wrong} delivered VCDUs differ from what was transmitted")
+    if partial:
+        fail(f"split path: {partial} frames past a stream's first passed sync with a "
+             "failed Reed-Solomon block")
+    if cold_wrong + cold_partial > 1:
+        fail(f"split path: {cold_wrong} complemented and {cold_partial} partly decoded "
+             "first frames, more than 1")
+    if min(frames) < 8:
+        fail(f"split path: a stream delivered only {min(frames)} frames")
+    if interior or edge_start > 1 or edge_end > 2:
+        fail(f"split path: delivered counters differ from the fused receive's: at most "
+             f"{edge_start} before, {interior} inside, at most {edge_end} after the "
+             "span both delivered")
+    if unlocked:
+        fail(f"split path: {unlocked} streams ended unlocked")
+    check_counts("split path", counts, SPLIT_PATH_KERNELS)
+    return counts, demod, state, steady
+
+def profile_steps(step, base: CF32, delays, step_ms: float) -> dict:
+    """`--profile`: the capture's next blocks through `step(x)` under
+    torch.profiler: where a step's device time goes, by kernel name, and an
+    ESTIMATE of the device's idle share of a step: device busy time under the
+    profiler against the step time measured without it (`step_ms`).  The two
+    come from different runs of the step because the profiler slows the host
+    many times over, so its own wall time says nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     steps = PROFILE_STEPS
@@ -527,7 +881,7 @@ def profile_steps(rx: FusedReceiver, base: CF32, delays, state, step_ms: float) 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for x in blocks:
-            _, _, _, state = rx.step(x, state)
+            step(x)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -544,9 +898,17 @@ def profile_steps(rx: FusedReceiver, base: CF32, delays, state, step_ms: float) 
     )
 
 
+class _Stepper:
+    """Carries a path's state from one profiled step to the next."""
+
+    def __init__(self, fn, state):
+        self.fn, self.state = fn, state
+
+    def __call__(self, x) -> None:
+        self.state = self.fn(x, self.state)[-1]
+
+
 def main() -> None:
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -563,6 +925,8 @@ def main() -> None:
         directory=str(_build.build_dir()), ptxas=[
             ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln])
 
+    say("fir", card=smi, **check_fir())
+
     cfg = DemodConfig.lrit(sample_rate=1_250_000)
     dcfg = DecoderConfig(mode="lrit")
     rx = FusedReceiver(cfg, dcfg, channels=CHANNELS, block_len=BLOCK_LEN)
@@ -574,22 +938,50 @@ def main() -> None:
     rows = check_kernels(rx, x0, x1, vcdus)
     del x0, x1
     torch.cuda.empty_cache()
+    rows.append(check_roll())
     say("kernels", card=smi, ragged_shapes_max_abs_err=check_ragged(rx), kernels=[
         dict(name=r["name"], max_abs_err=r["max_abs_err"], tolerance=r["tolerance"],
-             kernel_ms=r["ms"], plain_ms=r["plain_ms"]) for r in rows])
+             kernel_ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
+        for r in rows])
 
-    counts, state, step_ms = main_path(rx, base, delays, vcdus, esn0_db)
-
+    counts, state, step_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db)
     if "--profile" in sys.argv[1:]:
-        say("profile", card=smi, **profile_steps(rx, base, delays, state, step_ms))
+        say("profile", card=smi, path="main_path", **profile_steps(
+            _Stepper(rx.step, state), base, delays, step_ms))
+    del rx, state
+    torch.cuda.empty_cache()
+
+    split_counts, demod, dstate, split_ms = split_path(cfg, base, delays, vcdus, delivered, smi)
+    if "--profile" in sys.argv[1:]:
+        say("profile", card=smi, path="split_path (block_batch only)", **profile_steps(
+            _Stepper(demod.block_batch, dstate), base, delays, split_ms))
+    del demod, dstate
+    torch.cuda.empty_cache()
+
+    # The roll probe is a tool, not a stage of either receive path: its path
+    # is its own entry point.
+    reset_counts()
+    probe = roll_probe.main()
+    roll_counts = read_counts()
+    say("roll_probe", card=smi, dtypes=probe, launches=roll_counts)
+    check_counts("roll probe", roll_counts, ("roll",))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        name = r["name"]
+        if name in MAIN_PATH_KERNELS:
+            r["launches"] = counts[name]
+            if name in SPLIT_PATH_KERNELS:
+                r["launches_split_path"] = split_counts[name]
+        elif name in SPLIT_PATH_KERNELS:
+            r["launches"] = split_counts[name]
+        else:
+            r["launches"] = roll_counts[name]
     say("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + ("launches_split_path",) if k in r} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

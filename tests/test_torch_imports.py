@@ -32,6 +32,7 @@ bad = sorted(
     or m == "torch.utils.cpp_extension"
 )
 print("MODULES", len(names))
+print("NAMES", " ".join(names))
 print("BAD", bad)
 """
 
@@ -49,7 +50,20 @@ def probe():
 
 def test_every_submodule_imports(probe):
     n = int(probe.split("MODULES")[1].split()[0])
-    assert n >= 25
+    assert n >= 29
+
+
+@pytest.mark.parametrize("module", [
+    "ops.stream_cuda", "ops.frontend_cuda", "ops.clock_cuda", "ops.viterbi_cuda",
+    "ops.ring_cuda", "tools.roll_probe", "models.decoder", "models.demodulator", "convert",
+])
+def test_kernel_and_entry_modules_import_without_a_gpu_toolchain(probe, module):
+    """Each was imported by a process that ends with no `jax`, `jaxlib`,
+    `xritdemod_tpu`, `triton` or `torch.utils.cpp_extension` loaded (the BAD
+    list above) and on a box without a CUDA device."""
+    names = probe.split("NAMES")[1].splitlines()[0].split()
+    assert f"xritdemod_tpu_torch.{module}" in names
+    assert "BAD []" in probe, probe
 
 
 def test_import_leaves_jax_and_jax_package_out(probe):
@@ -100,6 +114,13 @@ _DECODER_SHARED = [f.name for f in dataclasses.fields(DecoderConfig)]
 @pytest.mark.parametrize("field", _DEMOD_SHARED)
 def test_demod_config_default_matches(field):
     assert getattr(DemodConfig(), field) == getattr(JDemodConfig(), field)
+
+
+def test_frontend_kernel_is_a_shared_field():
+    assert "frontend_kernel" in _DEMOD_SHARED
+    assert DemodConfig().frontend_kernel == JDemodConfig().frontend_kernel == "auto"
+    for kind in ("auto", "fused", "split"):
+        assert DemodConfig.lrit(frontend_kernel=kind).frontend_kernel == kind
 
 
 @pytest.mark.parametrize("field", _DECODER_SHARED)

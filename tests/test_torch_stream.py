@@ -1,0 +1,152 @@
+"""K5 / K6: the port's standalone AGC and Costas stages against the JAX
+package's Pallas kernels (`ops/stream_pallas.py`) in interpret mode.
+
+On the CPU the port's wrappers (`ops/stream_cuda.py`) take their plain
+versions, whose arithmetic the CUDA kernels repeat step for step
+(`csrc/loops.cuh`).  Shapes are the smallest the Pallas kernels take:
+C = 128 channels (one lane tile), T = 1024 (rows=256).  Tolerances: AGC is
+the same float32 operations in order (1e-6); the Costas loop calls sin/cos
+of two different libraries (1e-5 on output and phase, 1e-6 on freq).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import tnp
+from xritdemod_tpu.ops import agc as jagc
+from xritdemod_tpu.ops import costas as jcostas
+from xritdemod_tpu.ops.stream_pallas import agc_block_pallas, costas_block_pallas
+from xritdemod_tpu.utils.cplx import CF32 as JCF
+from xritdemod_tpu_torch.ops import agc as tagc
+from xritdemod_tpu_torch.ops import costas as tcostas
+from xritdemod_tpu_torch.ops import stream_cuda
+from xritdemod_tpu_torch.utils.cplx import CF32 as TCF
+
+C, T = 128, 1024
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _signal(rng, scale=0.3, t=T):
+    n = np.arange(t)
+    re = 0.5 * np.cos(0.004 * n + 0.3)[None, :] + rng.normal(0, scale, (C, t))
+    im = 0.5 * np.sin(0.004 * n + 0.3)[None, :] + rng.normal(0, scale, (C, t))
+    return re.astype(np.float32), im.astype(np.float32)
+
+
+@pytest.mark.parametrize("scale,g0", [(0.3, 1.0), (1e-5, 3996.0)])
+def test_agc_matches_pallas_interpret(rng, scale, g0):
+    """Also where the max-gain clamp binds mid-block (tiny input, gain
+    started just under the clamp)."""
+    re, im = _signal(rng, scale)
+    if scale < 1e-3:
+        re, im = re * 1e-5, im * 1e-5
+    gain = rng.uniform(0.9, 1.0, C).astype(np.float32) * np.float32(g0)
+    jy, jg = agc_block_pallas(
+        JCF(jnp.asarray(re), jnp.asarray(im)), jnp.asarray(gain), jagc.AgcParams(),
+        rows=256, interpret=True,
+    )
+    ty, tg = stream_cuda.agc_block_kernel(TCF(_t(re), _t(im)), _t(gain), tagc.AgcParams())
+    assert ty.re.shape == (C, T) and tg.shape == (C,)
+    # rtol on top of atol: at a gain of 4000 one float32 ulp is 2.4e-4.
+    np.testing.assert_allclose(ty.re.numpy(), np.asarray(jy.re), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(ty.im.numpy(), np.asarray(jy.im), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-6, rtol=1e-6)
+    if scale < 1e-3:
+        assert float(tg.max()) == 4000.0
+
+
+def test_costas_matches_pallas_interpret(rng):
+    re, im = _signal(rng, 0.05)
+    ph0 = rng.uniform(-1, 1, C).astype(np.float32)
+    fr0 = rng.uniform(-0.01, 0.01, C).astype(np.float32)
+    gains = jcostas.costas_gains(0.0037)
+    assert tuple(gains) == tuple(tcostas.costas_gains(0.0037))
+    jy, js = costas_block_pallas(
+        JCF(jnp.asarray(re), jnp.asarray(im)),
+        jcostas.CostasState(jnp.asarray(ph0), jnp.asarray(fr0)), gains,
+        rows=256, interpret=True,
+    )
+    ty, ts = stream_cuda.costas_block_kernel(
+        TCF(_t(re), _t(im)), tcostas.CostasState(_t(ph0), _t(fr0)),
+        tcostas.costas_gains(0.0037),
+    )
+    np.testing.assert_allclose(ty.re.numpy(), np.asarray(jy.re), atol=1e-5)
+    np.testing.assert_allclose(ty.im.numpy(), np.asarray(jy.im), atol=1e-5)
+    np.testing.assert_allclose(ts.phase.numpy(), np.asarray(js.phase), atol=1e-5)
+    np.testing.assert_allclose(ts.freq.numpy(), np.asarray(js.freq), atol=1e-6)
+
+
+def test_costas_wraps_and_clamps_like_pallas(rng):
+    """A locked loop on a carrier of 0.5 rad/sample: the phase passes 2pi
+    every dozen samples (single wrap step), and freq_max set to the carrier's
+    own rate makes the freq clamp bind about half the time; same tolerances."""
+    n = np.arange(T)
+    re = (0.9 * np.cos(0.5 * n + 0.2))[None, :] + rng.normal(0, 0.02, (C, T))
+    im = (0.9 * np.sin(0.5 * n + 0.2))[None, :] + rng.normal(0, 0.02, (C, T))
+    re, im = re.astype(np.float32), im.astype(np.float32)
+    ph0 = np.full(C, 0.2, np.float32)
+    fr0 = np.full(C, 0.5, np.float32)
+    jgains = jcostas.costas_gains(0.0037)._replace(freq_max=0.5)
+    tgains = tcostas.costas_gains(0.0037)._replace(freq_max=0.5)
+    jy, js = costas_block_pallas(
+        JCF(jnp.asarray(re), jnp.asarray(im)),
+        jcostas.CostasState(jnp.asarray(ph0), jnp.asarray(fr0)), jgains,
+        rows=256, interpret=True,
+    )
+    ty, ts = stream_cuda.costas_block_kernel(
+        TCF(_t(re), _t(im)), tcostas.CostasState(_t(ph0), _t(fr0)), tgains,
+    )
+    np.testing.assert_allclose(ty.re.numpy(), np.asarray(jy.re), atol=1e-5)
+    np.testing.assert_allclose(ty.im.numpy(), np.asarray(jy.im), atol=1e-5)
+    np.testing.assert_allclose(ts.phase.numpy(), np.asarray(js.phase), atol=1e-5)
+    np.testing.assert_allclose(ts.freq.numpy(), np.asarray(js.freq), atol=1e-6)
+    assert float(ts.freq.max()) == 0.5 and float(ts.freq.min()) < 0.5
+    assert float(ty.re.abs().mean()) > 0.8          # locked: energy on the real axis
+
+
+@pytest.mark.parametrize("stage", ["agc", "costas"])
+def test_two_chained_blocks_equal_one_double_block(rng, stage):
+    """Exactly: the carried state is all that crosses a block boundary."""
+    re, im = _signal(rng, 0.05, 2 * T)
+    full = TCF(_t(re), _t(im))
+    a, b = TCF(_t(re[:, :T]), _t(im[:, :T])), TCF(_t(re[:, T:]), _t(im[:, T:]))
+    if stage == "agc":
+        p = tagc.AgcParams()
+        run = lambda x, st: stream_cuda.agc_block_kernel(x, st, p)
+        st0 = tagc.agc_init(p, (C,))
+    else:
+        p = tcostas.costas_gains(0.0037)
+        run = lambda x, st: stream_cuda.costas_block_kernel(x, st, p)
+        st0 = tcostas.costas_init((C,))
+    yf, sf = run(full, st0)
+    ya, sa = run(a, st0)
+    yb, sb = run(b, sa)
+    np.testing.assert_array_equal(yf.re[:, :T].numpy(), ya.re.numpy())
+    np.testing.assert_array_equal(yf.re[:, T:].numpy(), yb.re.numpy())
+    np.testing.assert_array_equal(yf.im[:, T:].numpy(), yb.im.numpy())
+    for x, y in zip(jax.tree.leaves(tnp(sf)), jax.tree.leaves(tnp(sb))):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("stage", ["agc", "costas"])
+def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch(rng, stage):
+    re, im = _signal(rng, 0.05, 64)
+    x = TCF(_t(re[:3]), _t(im[:3]))
+    before = (stream_cuda.launches_agc, stream_cuda.launches_costas)
+    if stage == "agc":
+        p = tagc.AgcParams()
+        got = stream_cuda.agc_block_kernel(x, tagc.agc_init(p, (3,)), p)
+        want = tagc.agc_block(x, tagc.agc_init(p, (3,)), p)
+    else:
+        p = tcostas.costas_gains(0.0037)
+        got = stream_cuda.costas_block_kernel(x, tcostas.costas_init((3,)), p)
+        want = tcostas.costas_block(x, tcostas.costas_init((3,)), p)
+    np.testing.assert_array_equal(got[0].re.numpy(), want[0].re.numpy())
+    np.testing.assert_array_equal(got[0].im.numpy(), want[0].im.numpy())
+    assert (stream_cuda.launches_agc, stream_cuda.launches_costas) == before

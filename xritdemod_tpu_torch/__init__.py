@@ -1,16 +1,15 @@
 """xritdemod_tpu_torch — the PyTorch/CUDA port of the GOES xRIT receive chain.
 
-Same `ops/ models/ utils/` layout and the same module and function names as
-the JAX package `xritdemod_tpu`, so a reader finds each counterpart.  This
-package imports `torch` and `numpy` only — never `jax`, never
-`xritdemod_tpu`.  Entry points (`Demodulator`, `CaduDecoder`,
+Same `ops/ models/ utils/ tools/` layout and the same module and function
+names as the JAX package `xritdemod_tpu`, so a reader finds each counterpart.
+This package imports `torch` and `numpy` only — never `jax`, never
+`xritdemod_tpu`.  Entry points (`Demodulator`, `CaduDecoder`, `StreamDecoder`,
 `FusedReceiver`) run on the GPU unless the caller passes `device="cpu"`.
 
-The four kernels of the fused receive are hand-written CUDA C++ under
-`csrc/`, built at first use by `_build.py` and wrapped by
-`ops/{frontend,clock,viterbi,ring}_cuda.py`; each wrapper keeps a plain
-PyTorch version of the same function beside it, which is what runs for a
-CPU tensor.
+The kernels are hand-written CUDA C++ under `csrc/`, built at first use by
+`_build.py` and wrapped by `ops/{frontend,clock,viterbi,ring,stream}_cuda.py`
+and `tools/roll_probe.py`; each wrapper keeps a plain PyTorch version of the
+same function beside it, which is what runs for a CPU tensor.
 """
 
 __version__ = "0.1.0"

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 for sm_90a into its own shared library, loaded with `ctypes`.  Nothing here
 runs at import time: `load(name)` builds at first use (and again when the
-source is newer than the library), `build_all()` starts one `nvcc` per
-source together.  Libraries go to `XRITDEMOD_TORCH_BUILD` or, by default,
-`build/` inside the package (git-ignored).
+source, or any shared header `csrc/*.cuh`, is newer than the library),
+`build_all()` starts one `nvcc` per source together.  Libraries go to
+`XRITDEMOD_TORCH_BUILD` or, by default, `build/` inside the package
+(git-ignored).
 
 `-fmad=false` keeps the float recursions rounding as the plain PyTorch
 versions do (no contraction of `a*b + c` into one fused operation); no
@@ -23,7 +24,7 @@ from pathlib import Path
 
 __all__ = ["KERNELS", "build_all", "load", "build_dir", "check"]
 
-KERNELS = ("frontend", "clock", "viterbi", "ring")
+KERNELS = ("frontend", "clock", "viterbi", "ring", "stream", "roll")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _NVCC_FLAGS = [
@@ -53,7 +54,10 @@ def _paths(name: str) -> tuple[Path, Path]:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *_CSRC.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str, verbose: bool) -> subprocess.Popen:

@@ -3,7 +3,7 @@
 The system has no trained weights: its taps and tables are derived from the
 configuration in both packages, and what a running receiver owns is its
 carried state.  These functions turn the JAX package's `DemodState`,
-`RxState` and decoder tails — given as **numpy arrays** in the same nesting
+`RxState`, decoder tails and a `StreamDecoder`'s host state — given as **numpy arrays** in the same nesting
 (NamedTuples, plain tuples in field order, or dicts keyed by field name; the
 caller does the `np.asarray`) — into the port's state on a device, and back.
 Nothing here imports JAX.
@@ -14,6 +14,9 @@ Field order (both packages):
   ClockRecoveryState (mu, omega, ii, p, c, tail)
   RxState     (demod, ring, fill, locked, tails)
   CF32        (re, im)
+  StreamDecoder host state: a dict with `tail` (64,), `locked`, `verified`,
+    `pos`, `buffer` (the symbols not yet decoded: the realign buffer followed
+    by the pending chunks) and `stats` (frames, dropped, resyncs)
 """
 
 from __future__ import annotations
@@ -21,13 +24,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from xritdemod_tpu_torch.models.decoder import DecoderConfig, StreamDecoder
 from xritdemod_tpu_torch.models.demodulator import DemodState
 from xritdemod_tpu_torch.models.receiver import RxState
 from xritdemod_tpu_torch.ops.clock_recovery import ClockRecoveryState
 from xritdemod_tpu_torch.ops.costas import CostasState
 from xritdemod_tpu_torch.utils.cplx import CF32
 
-__all__ = ["demod_state_from_numpy", "rx_state_from_numpy", "tails_from_numpy", "to_numpy"]
+__all__ = [
+    "demod_state_from_numpy",
+    "rx_state_from_numpy",
+    "stream_decoder_from_numpy",
+    "tails_from_numpy",
+    "to_numpy",
+]
 
 
 def _field(obj, name: str, index: int):
@@ -87,6 +97,21 @@ def rx_state_from_numpy(state, device="cuda") -> RxState:
         locked=_tensor(_field(state, "locked", 3), torch.bool, device),
         tails=tails_from_numpy(_field(state, "tails", 4), device),
     )
+
+
+def stream_decoder_from_numpy(state: dict, config: DecoderConfig, device="cuda") -> StreamDecoder:
+    """A `StreamDecoder` that carries on where another left off: `state` is
+    the host state listed in the module docstring (numpy and plain Python
+    values), taken between two `push` calls."""
+    sd = StreamDecoder(config, device=device)
+    sd._tail = tails_from_numpy(state["tail"], sd.decoder.device)
+    sd._locked = bool(state["locked"])
+    sd._verified = bool(state["verified"])
+    sd._pos = int(state["pos"])
+    sd._buf = np.array(state["buffer"], np.float32)
+    frames, dropped, resyncs = (int(v) for v in state["stats"])
+    sd.stats.frames, sd.stats.dropped, sd.stats.resyncs = frames, dropped, resyncs
+    return sd
 
 
 def to_numpy(state):

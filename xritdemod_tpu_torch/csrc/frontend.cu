@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "loops.cuh"     // agc_step, costas_step: shared with stream.cu
+
 #define FIR_R 8          // outputs per thread in the FIR
 #define FIR_MAX_TAPS 256
 #define SEQ_BATCH 16     // rows loaded ahead in the sequential stages
@@ -54,12 +56,10 @@ __global__ void agc_kernel(const float* __restrict__ xr, const float* __restrict
 #pragma unroll
         for (int u = 0; u < SEQ_BATCH; ++u) {
             if (t0 + u < T) {
-                float re = vr[u], im = vi[u];
-                float mag = sqrtf(re * re + im * im);
-                orow[(size_t)(t0 + u) * C] = re * g;
-                irow[(size_t)(t0 + u) * C] = im * g;
-                g = g + rate * (reference - mag * g);
-                if (max_gain > 0.0f) g = fminf(g, max_gain);
+                float ore, oim;
+                agc_step(vr[u], vi[u], g, rate, reference, max_gain, ore, oim);
+                orow[(size_t)(t0 + u) * C] = ore;
+                irow[(size_t)(t0 + u) * C] = oim;
             }
         }
     }
@@ -112,7 +112,6 @@ __global__ void costas_kernel(float* __restrict__ yr, float* __restrict__ yi,
                               float* __restrict__ phase_out, float* __restrict__ freq_out,
                               int T, int C, float alpha, float beta,
                               float freq_min, float freq_max) {
-    const float TWO_PI = 6.28318530717958647692f;
     int c = blockIdx.x * blockDim.x + threadIdx.x;
     if (c >= C) return;
     float phase = phase_in[c];
@@ -130,16 +129,9 @@ __global__ void costas_kernel(float* __restrict__ yr, float* __restrict__ yi,
 #pragma unroll
         for (int u = 0; u < SEQ_BATCH; ++u) {
             if (t0 + u < T) {
-                float xr = vr[u], xi = vi[u];
-                float cs = cosf(phase);
-                float sn = sinf(phase);
-                float orr = xr * cs + xi * sn;      // y = x * exp(-i*phase)
-                float oi = xi * cs - xr * sn;
-                float err = fminf(fmaxf(orr * oi, -1.0f), 1.0f);
-                freq = fminf(fmaxf(freq + beta * err, freq_min), freq_max);
-                phase = phase + freq + alpha * err;
-                phase = phase - (phase > TWO_PI ? TWO_PI : 0.0f);
-                phase = phase + (phase < -TWO_PI ? TWO_PI : 0.0f);
+                float orr, oi;
+                costas_step(vr[u], vi[u], phase, freq, alpha, beta, freq_min, freq_max,
+                            orr, oi);
                 pr[(size_t)(t0 + u) * C] = orr;
                 pi[(size_t)(t0 + u) * C] = oi;
             }

@@ -1,11 +1,11 @@
 """The CADU decode chain as batched steps.
 
-Counterpart of `xritdemod_tpu/models/decoder.py` (its `CaduDecoder`; the
-host `StreamDecoder`, `decode_block`, `decode_multi` and the forensics
-fields are not ported yet).  Sync is a vectorised correlation + argmax, the
-per-frame flywheel recheck is one small matmul at every frame start, and the
-whole FEC stack (Viterbi -> NRZ-M -> derandomize -> RS -> header) runs on
-the batch at once.
+Counterpart of `xritdemod_tpu/models/decoder.py`: its `CaduDecoder`
+(`decode_frames`, `decode_block`, `sync`) and the host `StreamDecoder`;
+`decode_multi` and the forensics fields are not ported yet.  Sync is a
+vectorised correlation + argmax, the per-frame flywheel recheck is one small
+matmul at every frame start, and the whole FEC stack (Viterbi -> NRZ-M ->
+derandomize -> RS -> header) runs on the batch at once.
 
 Frame-boundary state matches the reference (decoder/src/newdecoder.cpp):
   - 64 soft symbols of Viterbi warm-up history are prepended per frame
@@ -19,8 +19,10 @@ Frame-boundary state matches the reference (decoder/src/newdecoder.cpp):
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from xritdemod_tpu_torch import constants as C
@@ -32,7 +34,7 @@ from xritdemod_tpu_torch.ops import viterbi_cuda
 from xritdemod_tpu_torch.ops.derandomizer import derandomize
 from xritdemod_tpu_torch.utils.bits import pack_bits
 
-__all__ = ["DecoderConfig", "FrameBatch", "CaduDecoder"]
+__all__ = ["DecoderConfig", "FrameBatch", "CaduDecoder", "StreamDecoder"]
 
 _CODED = C.CODED_FRAME_SIZE          # 16384 soft symbols per coded frame
 _HIST = C.LAST_FRAME_DATA_BITS       # 64 soft symbols of Viterbi history
@@ -86,7 +88,8 @@ class CaduDecoder:
     """Batched CADU decode: sync readout + FEC stack.
 
     `decode_frames` consumes `(B, 16384)` aligned soft frames plus `(B, 64)`
-    carried history tails and returns a `FrameBatch`.
+    carried history tails, `decode_block` `(B * 16384,)` consecutive aligned
+    symbols of one stream plus one `(64,)` tail; both return a `FrameBatch`.
     """
 
     def __init__(self, config: DecoderConfig = DecoderConfig(), device="cuda"):
@@ -119,6 +122,8 @@ class CaduDecoder:
         phase fix (HRIT's NRZ-M self-resolves)."""
         cfg = self.config
         signs = corr_op._hard_signs(frames[:, : corr_op.UW_BITS])
+        # +-1 times +-1 summed over 64 terms: exact in any float format the
+        # matmul backend picks.
         counts = (corr_op.UW_BITS + signs @ self._templates.t()) * 0.5  # (B, W)
         word = corr_op.first_argmax(counts).to(torch.int32)
         corr = counts.max(dim=-1).values
@@ -205,3 +210,167 @@ class CaduDecoder:
         fixed, word, corr, sync_ok = self._sync_and_fix(frames)
         batch = self._fec_stack(fixed, tails, word, corr, sync_ok)
         return batch, fixed[:, -_HIST:]
+
+    @torch.no_grad()
+    def decode_block(self, soft, tail):
+        """Decode `(B * 16384,)` aligned soft symbols of one stream (B >= 1
+        whole frames) with the carried `(64,)` history tail; each frame's
+        Viterbi history is the end of the frame before it.  Returns (batch,
+        new tail)."""
+        soft = torch.as_tensor(soft, device=self.device).to(torch.float32)
+        tail = torch.as_tensor(tail, device=self.device).to(torch.float32)
+        if soft.ndim != 1 or soft.shape[0] == 0 or soft.shape[0] % _CODED:
+            raise ValueError(
+                f"decode_block needs a whole number of {_CODED}-symbol frames, "
+                f"got shape {tuple(soft.shape)}"
+            )
+        frames, word, corr, sync_ok = self._sync_and_fix(soft.reshape(-1, _CODED))
+        prev_tails = torch.cat([tail[None, :], frames[:-1, -_HIST:]], dim=0)
+        batch = self._fec_stack(frames, prev_tails, word, corr, sync_ok)
+        return batch, frames[-1, -_HIST:]
+
+
+@dataclasses.dataclass
+class _StreamStats:
+    frames: int = 0
+    dropped: int = 0
+    resyncs: int = 0
+
+
+class StreamDecoder:
+    """Host streaming wrapper: unaligned soft-symbol stream -> frames.
+
+    Replaces the reference's socket loop realign/flywheel state machine
+    (newdecoder.cpp:212-263): buffers symbols, acquires sync with one
+    vectorised correlation, then decodes in B-frame batches with an
+    always-on per-frame recheck; any frame falling below the correlation
+    threshold triggers re-acquisition, like `lastFrameOK = false`.
+
+    The buffer is host numpy; each decode moves one chunk to the device.
+    Consumed symbols are skipped by a read offset and dropped when the next
+    chunks are merged in, so sliding over a stretch without sync costs no
+    copy per frame.
+    """
+
+    def __init__(self, config: DecoderConfig = DecoderConfig(), device="cuda"):
+        self.config = config
+        # One decoder serves both batch sizes: B frames once a frame has
+        # verified, one frame at a time during acquisition and stream-tail
+        # flush (the 46-of-64 threshold over 16384 lags false-locks readily
+        # on noise, as the reference's does, so only one frame is committed
+        # until a frame actually verifies).
+        self.decoder = CaduDecoder(config, device=device)
+        self._buf = np.zeros(0, np.float32)
+        self._off = 0                # read offset into _buf
+        # Incoming chunks accumulate here and merge into _buf only when a
+        # decode/acquire actually needs them: concatenating the full backlog
+        # on every small push is O(backlog^2).
+        self._pending: list[np.ndarray] = []
+        self._plen = 0
+        self._tail = self.decoder.init_tail()
+        self._locked = False
+        self._verified = False       # a frame passed sync since (re)acquisition
+        self._pos = 0
+        self.stats = _StreamStats()
+
+    @property
+    def buffered(self) -> int:
+        """Symbols awaiting decode (realign buffer + pending chunks)."""
+        return len(self._buf) - self._off + self._plen
+
+    def _materialize(self) -> None:
+        if self._plen:
+            self._buf = np.concatenate([self._buf[self._off :]] + self._pending)
+            self._off = 0
+            self._pending = []
+            self._plen = 0
+
+    def _emit(self, batch: FrameBatch) -> FrameBatch:
+        sync_ok, ok = torch.stack([batch.sync_ok, batch.frame_ok]).cpu().numpy()
+        self.stats.frames += int(ok.sum())
+        self.stats.dropped += int((~ok).sum())
+        if not sync_ok.all():
+            self._locked = False     # reacquire, like lastFrameOK = false
+            self._verified = False
+        elif sync_ok[-1]:
+            self._verified = True
+        return batch
+
+    def _try_acquire(self) -> bool:
+        need_sync = _CODED + corr_op.UW_BITS - 1
+        while True:
+            if len(self._buf) - self._off < need_sync:
+                return False
+            corr, _, pos = self.decoder.sync(self._buf[self._off : self._off + need_sync])
+            if corr < self.config.min_correlation_bits:
+                # No sync in this frame-length window: slide one frame
+                # (the reference drops the chunk, newdecoder.cpp:244-247).
+                self._off += _CODED
+                continue
+            self._locked = True
+            self._verified = False
+            self._pos = pos
+            self.stats.resyncs += 1
+            return True
+
+    def _decode(self, nb: int) -> FrameBatch:
+        """Decode `nb` frames at the sync position and step past them."""
+        start = self._off + self._pos
+        chunk = self._buf[start : start + nb * _CODED]
+        batch, self._tail = self.decoder.decode_block(chunk, self._tail)
+        self._off = start + nb * _CODED
+        self._pos = 0
+        return self._emit(batch)
+
+    def push(self, soft: np.ndarray) -> list[FrameBatch]:
+        """Feed soft symbols (float or int8); returns decoded batches."""
+        soft = np.asarray(soft, np.float32)
+        self._pending.append(soft)
+        self._plen += len(soft)
+        B = self.config.frames_per_block
+        need_sync = _CODED + corr_op.UW_BITS - 1
+        out: list[FrameBatch] = []
+        while True:
+            if not self._locked:
+                if self.buffered < need_sync:
+                    break
+                self._materialize()
+                if not self._try_acquire():
+                    break
+            nb = B if self._verified else 1
+            if self.buffered < self._pos + nb * _CODED:
+                break
+            self._materialize()
+            out.append(self._decode(nb))
+        return out
+
+    def warm_up(self) -> float:
+        """Build the Viterbi kernel and run the sync and both decode sizes
+        on zero input before real symbols arrive (the reference's
+        `warm_jit`).  The upstream symbol sender drops on backpressure
+        exactly like the reference's SymbolManager (SymbolManager.cpp:57-84),
+        so paying the one-time kernel build and first launches mid-stream
+        would lose frames.  Returns wall seconds spent."""
+        t0 = time.perf_counter()
+        self.decoder.sync(np.zeros(_CODED + corr_op.UW_BITS - 1, np.float32))
+        for nb in {1, self.config.frames_per_block}:
+            batch, _ = self.decoder.decode_block(
+                np.zeros(nb * _CODED, np.float32), self.decoder.init_tail()
+            )
+            batch.corr.cpu()         # wait for the device
+        return time.perf_counter() - t0
+
+    def flush(self) -> list[FrameBatch]:
+        """Decode everything still buffered (stream end / disconnect): full
+        B-frame batches first (the backlog can be the better part of the
+        stream when the producer outpaced us), then the remaining tail one
+        frame at a time."""
+        self._materialize()
+        out: list[FrameBatch] = self.push(np.zeros(0, np.float32))
+        while True:
+            if not self._locked and not self._try_acquire():
+                break
+            if len(self._buf) - self._off < self._pos + _CODED:
+                break
+            out.append(self._decode(1))
+        return out

@@ -8,8 +8,10 @@ returns soft symbols plus the next state.
 
 Chain: [decimating low-pass FIR] -> AGC -> RRC FIR -> Costas loop -> M&M
 clock recovery -> Re{.} soft symbols.  On the GPU the middle three stages
-are the fused front-end kernel (`ops/frontend_cuda.py`) and the clock is
-`ops/clock_cuda.py`; a CPU state/block takes their plain versions.
+are the fused front-end kernel (`ops/frontend_cuda.py`) or, with
+`frontend_kernel="split"`, the standalone AGC and Costas kernels
+(`ops/stream_cuda.py`) around the RRC convolution (`ops/fir.py`); the clock
+is `ops/clock_cuda.py`.  A CPU state/block takes their plain versions.
 """
 
 from __future__ import annotations
@@ -24,8 +26,12 @@ from xritdemod_tpu_torch.ops import agc as agc_op
 from xritdemod_tpu_torch.ops import clock_recovery as cr_op
 from xritdemod_tpu_torch.ops import costas as costas_op
 from xritdemod_tpu_torch.ops import filters, fir
-from xritdemod_tpu_torch.ops.clock_cuda import clock_recovery_block_kernel_batch_cl
+from xritdemod_tpu_torch.ops.clock_cuda import (
+    clock_recovery_block_kernel_batch,
+    clock_recovery_block_kernel_batch_cl,
+)
 from xritdemod_tpu_torch.ops.frontend_cuda import demod_frontend
+from xritdemod_tpu_torch.ops.stream_cuda import agc_block_kernel, costas_block_kernel
 from xritdemod_tpu_torch.utils.cplx import CF32, from_complex
 
 __all__ = ["DemodConfig", "DemodState", "Demodulator", "quantize_symbols"]
@@ -36,8 +42,8 @@ class DemodConfig:
     """Demodulator operating point (mirrors xritdemod.cfg keys).
 
     The fields and defaults are those of the JAX package's `DemodConfig`
-    minus its device tuning knobs (tile sizes, kernel selectors, block
-    updates), which have no meaning here.
+    minus its device tuning knobs (tile sizes, per-stage kernel selectors,
+    block updates), which choose between TPU forms and have no meaning here.
     """
 
     symbol_rate: int = C.LRIT_SYMBOL_RATE
@@ -56,6 +62,12 @@ class DemodConfig:
     # Fractional interpolator of the M&M clock: only the tabulated 8-tap
     # MMSE interpolator ("mmse", the shared default) is ported.
     clock_interp: str = "mmse"
+    # Front end of the batch path: "fused" runs AGC + RRC + Costas as the one
+    # channels-last front-end kernel; "split" runs them as three `(C, T)`
+    # stages (AGC kernel -> RRC convolution -> Costas kernel) feeding the
+    # `(C, T)` clock entry, same math.  "auto" is the fused kernel, which has
+    # no shape prerequisite here.
+    frontend_kernel: str = "auto"
 
     @classmethod
     def lrit(cls, sample_rate: int = 1_250_000, decimation: int = 1, **kw) -> "DemodConfig":
@@ -107,6 +119,11 @@ class Demodulator:
         if config.clock_interp != "mmse":
             raise ValueError(
                 f"clock_interp must be 'mmse' in this port, got {config.clock_interp!r}"
+            )
+        if config.frontend_kernel not in ("auto", "fused", "split"):
+            raise ValueError(
+                "frontend_kernel must be 'auto', 'fused' or 'split', "
+                f"got {config.frontend_kernel!r}"
             )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -177,15 +194,23 @@ class Demodulator:
                 f"block_batch got {x.re.shape[-1]} post-decimation samples; this "
                 f"Demodulator was built for block_len={self.block_len} (-> {expect})"
             )
-        # Channels-last from here on: the layout of both kernels.
-        xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-        yT, agc_gain, rrc_hist, costas_state = demod_frontend(
-            xT, state.agc_gain, state.rrc_hist, state.costas,
-            self._agc, self._rrc_taps, self._costas,
-        )
-        syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
-            yT, state.clock, self._clock, self.num_slots
-        )
+        if cfg.frontend_kernel == "split":
+            x, agc_gain = agc_block_kernel(x, state.agc_gain, self._agc)
+            x, rrc_hist = fir.fir_block(x, self._rrc_taps, state.rrc_hist)
+            x, costas_state = costas_block_kernel(x, state.costas, self._costas)
+            syms, valid, clock_state = clock_recovery_block_kernel_batch(
+                x, state.clock, self._clock, self.num_slots
+            )
+        else:
+            # Channels-last from here on: the layout of both kernels.
+            xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+            yT, agc_gain, rrc_hist, costas_state = demod_frontend(
+                xT, state.agc_gain, state.rrc_hist, state.costas,
+                self._agc, self._rrc_taps, self._costas,
+            )
+            syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
+                yT, state.clock, self._clock, self.num_slots
+            )
         soft = syms.re   # the reference takes Re{.}
         return soft, valid, DemodState(
             dec_hist=dec_hist,

@@ -11,7 +11,8 @@ The JAX package's default form is an associative scan that only approximates
 the clamp; the port keeps the exact recursion everywhere.  This plain form
 loops over time in Python (vectorised over the leading axes) and serves the
 CPU and the tests; on the GPU the recursion runs inside the fused front end
-(`ops/frontend_cuda.py`).
+(`ops/frontend_cuda.py`) or, on the split path, as the standalone kernel
+`ops/stream_cuda.agc_block_kernel`, whose plain version `agc_block` is.
 """
 
 from __future__ import annotations

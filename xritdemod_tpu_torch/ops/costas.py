@@ -15,7 +15,8 @@ Counterpart of `xritdemod_tpu/ops/costas.py::costas_block` (GNU Radio
 
 This plain form loops over time in Python (vectorised over the leading
 axes); on the GPU the recursion runs inside the fused front end
-(`ops/frontend_cuda.py`).
+(`ops/frontend_cuda.py`) or, on the split path, as the standalone kernel
+`ops/stream_cuda.costas_block_kernel`, whose plain version `costas_block` is.
 """
 
 from __future__ import annotations

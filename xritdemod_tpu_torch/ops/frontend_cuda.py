@@ -21,6 +21,7 @@ tensor takes the kernel.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
@@ -47,18 +48,51 @@ def _fir_cl(ext: torch.Tensor, taps: torch.Tensor, T: int) -> torch.Tensor:
 def demod_frontend_plain(
     x: CF32, gain, rrc_hist: CF32, costas_state: CostasState,
     agc: AgcParams, taps: torch.Tensor, costas: CostasParams,
+    stages: dict | None = None,
 ):
-    """Plain PyTorch version of `demod_frontend` (same contract)."""
+    """Plain PyTorch version of `demod_frontend` (same contract).
+
+    A dict passed as `stages` receives what lies between the three stages:
+    `agc` (the AGC's output) and `fir` (the matched filter's output, the
+    Costas loop's input), both `(T, C)` CF32 — on the same data these are
+    what the standalone AGC and Costas stages (`ops/stream_cuda.py`) give
+    and take — and `seconds`, the wall time of each stage.
+    """
     T = x.re.shape[0]
     nh = taps.shape[0] - 1
+    clock = _StageClock(x.re.device) if stages is not None else None
     gains, new_gain = agc_gains(x.abs(), gain, agc)
     er = torch.cat([rrc_hist.re.t(), x.re * gains])       # (nh+T, C)
     ei = torch.cat([rrc_hist.im.t(), x.im * gains])
+    if clock:
+        clock.mark("agc")
     fr = _fir_cl(er, taps, T)
     fi = _fir_cl(ei, taps, T)
+    if clock:
+        clock.mark("fir")
     yr, yi, new_costas = costas_steps(fr, fi, costas_state, costas)
+    if clock:
+        clock.mark("costas")
+        stages.update(agc=CF32(er[nh:], ei[nh:]), fir=CF32(fr, fi), seconds=clock.seconds)
     new_hist = CF32(er[T:].t().contiguous(), ei[T:].t().contiguous())
     return CF32(yr, yi), new_gain, new_hist, new_costas
+
+
+class _StageClock:
+    """Wall time between marks, the device's queue drained at each."""
+
+    def __init__(self, device):
+        self.device, self.seconds = device, {}
+        self._t = self._now()
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = self._now()
+        self.seconds[name], self._t = now - self._t, now
 
 
 def _lib():

@@ -1,0 +1,122 @@
+"""Standalone AGC and Costas loops over `(C, T)` blocks: wrappers for
+`csrc/stream.cu`, the two feedback stages of the split front end.
+
+Replaces `xritdemod_tpu/ops/stream_pallas.py` (`agc_block_pallas` /
+`_agc_kernel`, `costas_block_pallas` / `_costas_kernel`), the exact
+sequential recursions.  Those wrappers transpose to channels-last planes
+around the kernel; here the kernel takes and gives `(C, T)` itself: a warp
+owns 32 channels and stages 32 x 32 tiles through shared memory, reading and
+writing each channel's row along time (coalesced) while each lane walks its
+own channel.  The per-sample arithmetic is `csrc/loops.cuh`, shared with the
+fused front end (`csrc/frontend.cu`).
+
+What bounds them on an H100: by bytes each reads the block once and writes
+it once, but each channel is a chain of T dependent steps with only C
+threads in flight, so the chain's length binds, as in the fused front end.
+The tile fetch runs one tile ahead of the walk (`cp.async`, two buffers) so
+memory latency hides behind the chain.
+
+The plain versions are `ops/agc.agc_block` and `ops/costas.costas_block`; a
+CPU tensor takes them, a CUDA tensor takes the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from xritdemod_tpu_torch import _build
+from xritdemod_tpu_torch.ops.agc import AgcParams, agc_block
+from xritdemod_tpu_torch.ops.costas import CostasParams, CostasState, costas_block
+from xritdemod_tpu_torch.utils.cplx import CF32
+
+__all__ = [
+    "agc_block_kernel",
+    "costas_block_kernel",
+    "launches_agc",
+    "launches_costas",
+]
+
+launches_agc = 0
+launches_costas = 0
+
+
+def _fn(name: str, nptr: int, nfloat: int):
+    fn = getattr(_build.load("stream"), name)
+    if not fn.argtypes:
+        fn.argtypes = (
+            [ctypes.c_void_p] * nptr + [ctypes.c_int] * 2
+            + [ctypes.c_float] * nfloat + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def _check(what: str, x: CF32, *state: torch.Tensor) -> tuple[int, int]:
+    """`(C, T)` float32 planes and `(C,)` float32 state on one CUDA device."""
+    if x.re.ndim != 2 or x.im.shape != x.re.shape or 0 in x.re.shape:
+        raise ValueError(f"{what}: need non-empty (C, T) planes, got {tuple(x.re.shape)}")
+    C, T = x.re.shape
+    dev = x.re.device
+    for t in (x.re, x.im, *state):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{what}: need float32 tensors on {dev}")
+    if any(s.shape != (C,) for s in state):
+        raise ValueError(f"{what}: state must have shape ({C},)")
+    return C, T
+
+
+@torch.no_grad()
+def agc_block_kernel(x: CF32, gain: torch.Tensor, params: AgcParams):
+    """Exact sequential AGC over a `(C, T)` CF32 block with `(C,)` carried
+    gain; drop-in for `agc.agc_block` at that shape.  Returns `(y, gain')`."""
+    global launches_agc
+    if not x.re.is_cuda:
+        return agc_block(x, gain, params)
+    C, T = _check("agc_block_kernel", x, gain)
+    # Every tensor handed to the kernel stays referenced until the launch.
+    xr, xi, g_in = x.re.contiguous(), x.im.contiguous(), gain.contiguous()
+    yr, yi, g_out = torch.empty_like(xr), torch.empty_like(xi), torch.empty_like(g_in)
+    with torch.cuda.device(xr.device):
+        err = _fn("xrit_agc_block", 6, 3)(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            g_in.data_ptr(), g_out.data_ptr(), C, T,
+            _f32(params.rate), _f32(params.reference), _f32(params.max_gain),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "xrit_agc_block")
+    launches_agc += 1
+    return CF32(yr, yi), g_out
+
+
+@torch.no_grad()
+def costas_block_kernel(x: CF32, state: CostasState, params: CostasParams):
+    """Exact sequential Costas loop over a `(C, T)` CF32 block with `(C,)`
+    carried phase and freq; drop-in for `costas.costas_block` at that shape.
+    Returns `(y, state')`."""
+    global launches_costas
+    if not x.re.is_cuda:
+        return costas_block(x, state, params)
+    C, T = _check("costas_block_kernel", x, state.phase, state.freq)
+    xr, xi = x.re.contiguous(), x.im.contiguous()
+    ph_in, fr_in = state.phase.contiguous(), state.freq.contiguous()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    ph_out, fr_out = torch.empty_like(ph_in), torch.empty_like(fr_in)
+    with torch.cuda.device(xr.device):
+        err = _fn("xrit_costas_block", 8, 4)(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            ph_in.data_ptr(), fr_in.data_ptr(), ph_out.data_ptr(), fr_out.data_ptr(),
+            C, T,
+            _f32(params.alpha), _f32(params.beta),
+            _f32(params.freq_min), _f32(params.freq_max),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "xrit_costas_block")
+    launches_costas += 1
+    return CF32(yr, yi), CostasState(phase=ph_out, freq=fr_out)
