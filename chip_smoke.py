@@ -2,13 +2,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA device, nvcc, no network
-    python3 chip_smoke.py --profile  # also: device time of a step by kernel name
+    python3 chip_smoke.py --profile  # also: device time of a step by kernel name,
+                                     # and which warp of K1 and K2 sets their time
 
 Builds the six CUDA libraries from `xritdemod_tpu_torch/csrc/`, holds every
 kernel against its plain PyTorch version on the card at the shapes its path
-gives it (and at small ragged shapes), then drives two paths at the shipped
-LRIT operating point, C = 2048 channels x 131072 samples per block, on
-synthesised captures:
+gives it (the front end and the clock over two chained blocks, each version
+carrying its own state) and at small ragged shapes (also: the clock where
+channels stand further apart than its shared-memory ring, and the Costas
+step's sine and cosine against the CUDA library's), then drives two paths at
+the shipped LRIT operating point, C = 2048 channels x 131072 samples per
+block, on synthesised captures:
 
   - the fused receive, `FusedReceiver.step` and one block of `step_int8`;
   - the split receive, `Demodulator(frontend_kernel="split").block_batch`
@@ -73,6 +77,7 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 DEV = torch.device("cuda", 0)
+PROFILE = "--profile" in sys.argv[1:]
 
 
 def say(phase: str, **kw) -> None:
@@ -176,48 +181,110 @@ def make_block(base: CF32, delays: np.ndarray, b: int, gen: torch.Generator) -> 
 # kernels against their plain versions, at the main path's shapes
 # --------------------------------------------------------------------------
 
+def stage_clocks(kernel: str, roles, launch) -> None:
+    """`--profile`: one launch of a debug build of `kernel` that counts, for
+    its first block, the cycles every warp spends waiting on a barrier and the
+    cycles of its whole role.  The stage that hardly waits sets the kernel's
+    time."""
+    with _build.stage_clocks(kernel) as read:
+        launch()
+        read()                      # the first launch also loads the library
+        launch()
+        wait, role = read()
+    say("stage_clocks", kernel=kernel, warps=[
+        dict(role=name, cycles=role[i], waiting_share=wait[i] / max(role[i], 1))
+        for i, name in enumerate(roles) if name is not None])
+
+
+def frontend_errs(k, p) -> list[float]:
+    """Largest differences of two front-end results: output, gain, history,
+    Costas state."""
+    return [
+        max_err(k[0].re, p[0].re), max_err(k[0].im, p[0].im), max_err(k[1], p[1]),
+        max_err(k[2].re, p[2].re), max_err(k[2].im, p[2].im),
+        max_err(k[3].phase, p[3].phase), max_err(k[3].freq, p[3].freq),
+    ]
+
+
+def clock_errs(k, p, what: str) -> list[float]:
+    """Largest differences of two clock results; symbol counts and sample
+    positions must be equal."""
+    (ks, kv, kst), (ps, pv, pst) = k, p
+    if not torch.equal(kv, pv):
+        fail(f"{what}: symbol counts differ from the plain version")
+    if not torch.equal(kst.ii, pst.ii):
+        fail(f"{what}: sample positions differ from the plain version")
+    return [
+        max_err(ks.re, ps.re), max_err(ks.im, ps.im), max_err(kst.mu, pst.mu),
+        max_err(kst.omega, pst.omega), max_err(kst.p.re, pst.p.re), max_err(kst.p.im, pst.p.im),
+        max_err(kst.c.re, pst.c.re), max_err(kst.c.im, pst.c.im),
+        max_err(kst.tail.re, pst.tail.re), max_err(kst.tail.im, pst.tail.im),
+    ]
+
+
 def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
-    """Each kernel against its plain version on the card.  The front end,
-    the standalone AGC and Costas stages and the clock take the capture's
-    second block with the state the first block left (loops pulled in, as in
-    steady reception).  One run of the plain front end serves three kernels:
-    its AGC stage is the plain standalone AGC on the same block and gain, and
-    its Costas stage, fed its own filter output, the plain standalone Costas
-    loop (`demod_frontend_plain(stages=...)`)."""
+    """Each kernel against its plain version on the card.  The front end and
+    the clock run the capture's first two blocks chained, the kernel carrying
+    its own state and the plain version its own, from the same cold start;
+    both blocks are compared, and the times are the second block's (loops
+    pulled in, as in steady reception).  The standalone AGC and Costas stages
+    take the second block with the state the plain front end's first block
+    left.  One run of the plain front end serves three kernels: its AGC stage
+    is the plain standalone AGC on the same block and gain, and its Costas
+    stage, fed its own filter output, the plain standalone Costas loop
+    (`demod_frontend_plain(stages=...)`)."""
     demod = rx._demod
     C, T = CHANNELS, BLOCK_LEN
-    _, _, st = demod.block_batch(x0, demod.init_state_batch(C))
+    st = demod.init_state_batch(C)
+    fe_params = (demod._agc, demod._rrc_taps, demod._costas)
     rows = []
 
-    # K1 front end.
+    # K1 front end, block 0 then block 1.
+    xT0 = CF32(x0.re.t().contiguous(), x0.im.t().contiguous())
+    k0 = frontend_cuda.demod_frontend(xT0, st.agc_gain, st.rrc_hist, st.costas, *fe_params)
+    p0 = frontend_cuda.demod_frontend_plain(xT0, st.agc_gain, st.rrc_hist, st.costas, *fe_params)
+    errs0 = frontend_errs(k0, p0)
+    if not max(errs0) <= 1e-4:
+        fail(f"front end, first block, disagrees with its plain version: {errs0}")
+    # The clock's first block, on the plain front end's output for both.
+    ck0 = (p0[0], st.clock, demod._clock, demod.num_slots)
+    kc0 = clock_cuda.clock_recovery_block_kernel_batch_cl(*ck0)
+    pc0 = clock_cuda.clock_recovery_block_plain_cl(*ck0)
+    cerrs0 = clock_errs(kc0, pc0, "clock, first block")
+    if not max(cerrs0) <= 1e-4:
+        fail(f"clock, first block, disagrees with its plain version: {cerrs0}")
+    del xT0, ck0
+    k_state, p_state = k0[1:], p0[1:]
+    kc_state, pc_state = kc0[2], pc0[2]
+    del k0, p0, kc0, pc0
+
     xT = CF32(x1.re.t().contiguous(), x1.im.t().contiguous())
-    fe_args = (xT, st.agc_gain, st.rrc_hist, st.costas, demod._agc, demod._rrc_taps, demod._costas)
-    k_out = frontend_cuda.demod_frontend(*fe_args)
+    k_out = frontend_cuda.demod_frontend(xT, *k_state, *fe_params)
     torch.cuda.synchronize()
     stages: dict = {}
     p_out, plain_ms = once_ms(
-        lambda: frontend_cuda.demod_frontend_plain(*fe_args, stages=stages))
-    errs = [
-        max_err(k_out[0].re, p_out[0].re), max_err(k_out[0].im, p_out[0].im),
-        max_err(k_out[1], p_out[1]),
-        max_err(k_out[2].re, p_out[2].re), max_err(k_out[2].im, p_out[2].im),
-        max_err(k_out[3].phase, p_out[3].phase), max_err(k_out[3].freq, p_out[3].freq),
-    ]
+        lambda: frontend_cuda.demod_frontend_plain(xT, *p_state, *fe_params, stages=stages))
+    errs = frontend_errs(k_out, p_out)
     if not max(errs) <= 1e-4:
-        fail(f"front end disagrees with its plain version: {errs}")
+        fail(f"front end, second block, disagrees with its plain version: {errs}")
+    errs = errs + errs0
+    fe_args = (xT, *k_state, *fe_params)
     ms = time_ms(lambda: frontend_cuda.demod_frontend(*fe_args), 3)
+    if PROFILE:
+        stage_clocks("frontend", frontend_cuda.ROLES,
+                     lambda: frontend_cuda.demod_frontend(*fe_args))
     N = int(demod._rrc_taps.shape[0])
     bms, by = bound(4 * (4 * T * C + 4 * C * (N - 1) + 6 * C), T * C * (4 * N + 40))
     rows.append(dict(
         name="frontend", route="cuda", source="xritdemod_tpu_torch/csrc/frontend.cu",
         replaces="xritdemod_tpu/ops/frontend_pallas.py:335", max_abs_err=max(errs),
-        tolerance="atol 1e-4", ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None,
+        tolerance="atol 1e-4, two chained blocks", ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None,
     ))
 
     # K5 standalone AGC on the (C, T) block: expected is the plain front
     # end's AGC stage.
-    agc_args = (x1, st.agc_gain, demod._agc)
+    agc_args = (x1, p_state[0], demod._agc)
     ky, kg = stream_cuda.agc_block_kernel(*agc_args)
     errs = [max_err(ky.re, stages["agc"].re.t()), max_err(ky.im, stages["agc"].im.t()),
             max_err(kg, p_out[1])]
@@ -236,7 +303,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     # K6 standalone Costas on the (C, T) filter output: expected is the plain
     # front end's Costas stage.
     fir_ct = CF32(stages["fir"].re.t().contiguous(), stages["fir"].im.t().contiguous())
-    cos_args = (fir_ct, st.costas, demod._costas)
+    cos_args = (fir_ct, p_state[2], demod._costas)
     ky, ks_ = stream_cuda.costas_block_kernel(*cos_args)
     errs = [max_err(ky.re, p_out[0].re.t()), max_err(ky.im, p_out[0].im.t()),
             max_err(ks_.phase, p_out[3].phase), max_err(ks_.freq, p_out[3].freq)]
@@ -253,31 +320,30 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     ))
     del ky, ks_, fir_ct, cos_args, p_out, stages
 
-    # K2 clock: the front end's output.
+    # K2 clock, second block: the front end's output, each version with the
+    # state its own first block left.
     yT = k_out[0]
-    ck_args = (yT, st.clock, demod._clock, demod.num_slots)
+    ck_args = (yT, kc_state, demod._clock, demod.num_slots)
     ks, kv, kst = clock_cuda.clock_recovery_block_kernel_batch_cl(*ck_args)
     torch.cuda.synchronize()
-    (ps, pv, pst), plain_ms = once_ms(lambda: clock_cuda.clock_recovery_block_plain_cl(*ck_args))
-    if not torch.equal(kv, pv):
-        fail("clock: symbol counts differ from the plain version")
-    if not torch.equal(kst.ii, pst.ii):
-        fail("clock: sample positions differ from the plain version")
-    errs = [
-        max_err(ks.re, ps.re), max_err(ks.im, ps.im), max_err(kst.mu, pst.mu),
-        max_err(kst.omega, pst.omega), max_err(kst.p.re, pst.p.re), max_err(kst.p.im, pst.p.im),
-        max_err(kst.c.re, pst.c.re), max_err(kst.tail.re, pst.tail.re),
-    ]
+    (ps, pv, pst), plain_ms = once_ms(lambda: clock_cuda.clock_recovery_block_plain_cl(
+        yT, pc_state, demod._clock, demod.num_slots))
+    errs = clock_errs((ks, kv, kst), (ps, pv, pst), "clock, second block")
     if not max(errs) <= 1e-4:
-        fail(f"clock disagrees with its plain version: {errs}")
+        fail(f"clock, second block, disagrees with its plain version: {errs}")
+    errs = errs + cerrs0
     ms = time_ms(lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*ck_args), 3)
+    if PROFILE:
+        stage_clocks("clock", clock_cuda.ROLES,
+                     lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*ck_args))
     nsym = int(kv.sum())
     S = demod.num_slots
     bms, by = bound(4 * (2 * (T + NTAIL) * C + 2 * C * S + 30 * C), nsym * 70.0)
     rows.append(dict(
         name="clock", route="cuda", source="xritdemod_tpu_torch/csrc/clock.cu",
         replaces="xritdemod_tpu/ops/clock_pallas.py:539", max_abs_err=max(errs),
-        tolerance="atol 1e-4, equal symbol counts", ms=ms, plain_ms=plain_ms,
+        tolerance="atol 1e-4, equal symbol counts and positions, two chained blocks", ms=ms,
+        plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None, symbols=nsym,
     ))
     del ps, pv, pst
@@ -362,35 +428,91 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     return rows
 
 
+# (channels, samples) of the small blocks: channels fewer than a warp, one
+# more than a warp and 70; samples one less and one more than a multiple of
+# the front end's 48-sample tile and of the clock's 32-row chunk, barely more
+# than the 62-row filter history (64), and the clock's shortest block
+# (NTAIL + 9 = 41).
+RAGGED_SHAPES = ((70, 1003), (5, 64), (33, 95), (33, 97), (5, 47), (40, 49), (33, 1023),
+                 (3, 1025), (64, 41))
+
+
+def ragged_signal(T: int, C: int, rnd) -> CF32:
+    n = torch.arange(T, device=DEV)[:, None]
+    carrier = 0.5 * torch.sign(torch.sin(1.4771 * n + torch.arange(C, device=DEV)))
+    return CF32(carrier + rnd(T, C, scale=0.05), rnd(T, C, scale=0.05))
+
+
+def check_slow_clock(demod: Demodulator, rnd) -> dict:
+    """The clock kernel where channels of one group stand further apart than
+    its shared-memory ring spans (every second channel starts 700 samples
+    ahead; omega at both ends of its range): the lanes ahead must take their
+    samples from device memory, and the result must still be the plain
+    version's."""
+    C, T = 40, 4000
+    st = demod.init_state_batch(C).clock
+    ii = st.ii.clone()
+    ii[1::2] += 700
+    omega = st.omega.clone()
+    lim = demod._clock.omega_relative_limit
+    omega[::3] *= 1.0 + lim
+    omega[1::3] *= 1.0 - lim
+    st = st._replace(ii=ii, omega=omega)
+    y = ragged_signal(T, C, rnd)
+    S = T // 4 + 20
+    clock_cuda.out_of_ring_symbols(DEV, reset=True)
+    k = clock_cuda.clock_recovery_block_kernel_batch_cl(y, st, demod._clock, S)
+    taken = clock_cuda.out_of_ring_symbols(DEV, reset=True)
+    p = clock_cuda.clock_recovery_block_plain_cl(y, st, demod._clock, S)
+    err = max(clock_errs(k, p, "clock outside its ring"))
+    if taken <= 0:
+        fail("clock outside its ring: the kernel never read a symbol from device memory")
+    return dict(shape=[C, T], symbols=int(k[1].sum()), symbols_from_device_memory=taken,
+                max_abs_err=err)
+
+
+def check_trig() -> dict:
+    """The shared-reduction sine and cosine of the Costas step against the
+    CUDA library's `sinf` and `cosf`, bit for bit, over a dense sweep of the
+    range a phase lives in and a sweep across the library's large-argument
+    threshold."""
+    out = {}
+    for name, lo, hi, n in (("phase_range", -8.0, 8.0, 1 << 28),
+                            ("across_threshold", -2.5e5, 2.5e5, 1 << 24)):
+        bad = frontend_cuda.trig_mismatches(lo, hi, n, DEV)
+        out[name] = dict(lo=lo, hi=hi, arguments=n, mismatches=bad)
+        if bad:
+            fail(f"sincos_exact differs from sinf/cosf in {bad} of {n} arguments in [{lo}, {hi}]")
+    return out
+
+
 def check_ragged(rx: FusedReceiver) -> dict:
     """The kernels against their plain versions at small sizes that are no
-    multiple of any tile (channels not of 32, times not of 16, 8 or 32), where
-    a wrong edge guard would show.  Returns the largest differences."""
+    multiple of any tile (see RAGGED_SHAPES), where a wrong edge guard would
+    show.  The front end and the clock run two chained blocks of every shape,
+    each version carrying its own state.  Returns the largest differences."""
     demod = rx._demod
     g = torch.Generator(device=DEV).manual_seed(SEED + 3)
     rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
-    C, T = 70, 1003
-    n = torch.arange(T, device=DEV)[:, None]
-    carrier = 0.5 * torch.sign(torch.sin(1.4771 * n + torch.arange(C, device=DEV)))
-    x = CF32(carrier + rnd(T, C, scale=0.05), rnd(T, C, scale=0.05))
-    st = demod.init_state_batch(C)
-    args = (x, st.agc_gain + rnd(C).abs(), CF32(rnd(C, 62), rnd(C, 62)), st.costas,
-            demod._agc, demod._rrc_taps, demod._costas)
-    k = frontend_cuda.demod_frontend(*args)
-    p = frontend_cuda.demod_frontend_plain(*args)
-    out = {"frontend": max(max_err(k[0].re, p[0].re), max_err(k[0].im, p[0].im),
-                           max_err(k[1], p[1]), max_err(k[2].re, p[2].re),
-                           max_err(k[3].phase, p[3].phase), max_err(k[3].freq, p[3].freq))}
-
-    S = 260
-    ck = (k[0], st.clock, demod._clock, S)
-    ks, kv, kst = clock_cuda.clock_recovery_block_kernel_batch_cl(*ck)
-    ps, pv, pst = clock_cuda.clock_recovery_block_plain_cl(*ck)
-    if not (torch.equal(kv, pv) and torch.equal(kst.ii, pst.ii)):
-        fail("ragged clock: counts or positions differ from the plain version")
-    out["clock"] = max(max_err(ks.re, ps.re), max_err(ks.im, ps.im), max_err(kst.mu, pst.mu),
-                       max_err(kst.omega, pst.omega), max_err(kst.p.im, pst.p.im),
-                       max_err(kst.c.im, pst.c.im), max_err(kst.tail.im, pst.tail.im))
+    fe_params = (demod._agc, demod._rrc_taps, demod._costas)
+    out = {"frontend": 0.0, "clock": 0.0}
+    for C, T in RAGGED_SHAPES:
+        st = demod.init_state_batch(C)
+        kfe = pfe = (st.agc_gain + rnd(C).abs(), CF32(rnd(C, 62), rnd(C, 62)), st.costas)
+        kck = pck = st.clock
+        S = T // 4 + 20
+        for _ in range(2):
+            x = ragged_signal(T, C, rnd)
+            k = frontend_cuda.demod_frontend(x, *kfe, *fe_params)
+            p = frontend_cuda.demod_frontend_plain(x, *pfe, *fe_params)
+            out["frontend"] = max(out["frontend"], *frontend_errs(k, p))
+            kfe, pfe = k[1:], p[1:]
+            kc = clock_cuda.clock_recovery_block_kernel_batch_cl(p[0], kck, demod._clock, S)
+            pc = clock_cuda.clock_recovery_block_plain_cl(p[0], pck, demod._clock, S)
+            out["clock"] = max(out["clock"], *clock_errs(kc, pc, f"ragged clock {C} x {T}"))
+            kck, pck = kc[2], pc[2]
+    out["clock_outside_its_ring"] = check_slow_clock(demod, rnd)
+    out["sincos"] = check_trig()
 
     Cr, L, Sr, E = 5, 300, 77, 64
     cpu = torch.Generator().manual_seed(SEED + 4)
@@ -408,9 +530,12 @@ def check_ragged(rx: FusedReceiver) -> dict:
     out["ring"] = 0.0
 
     # The standalone stages on (C, T), against `agc_block` / `costas_block`.
+    C, T = RAGGED_SHAPES[0]
+    x = ragged_signal(T, C, rnd)
     xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-    ka = stream_cuda.agc_block_kernel(xc, args[1], demod._agc)
-    pa = agc_op.agc_block(xc, args[1], demod._agc)
+    gain = demod.init_state_batch(C).agc_gain + rnd(C).abs()
+    ka = stream_cuda.agc_block_kernel(xc, gain, demod._agc)
+    pa = agc_op.agc_block(xc, gain, demod._agc)
     out["agc_block"] = max(max_err(ka[0].re, pa[0].re), max_err(ka[0].im, pa[0].im),
                            max_err(ka[1], pa[1]))
     cst = costas_op.CostasState(rnd(C, scale=2.0), rnd(C, scale=0.01))
@@ -439,7 +564,9 @@ def check_ragged(rx: FusedReceiver) -> dict:
         if not torch.equal(viterbi_cuda.decode_bits(soft), viterbi_cuda.decode_bits_plain(soft)):
             fail(f"ragged viterbi ({nw} x {steps}) differs from its plain version")
     out["viterbi"] = 0.0
-    if not max(out.values()) <= 1e-4:
+    worst = max(v["max_abs_err"] if k == "clock_outside_its_ring" else v
+                for k, v in out.items() if k != "sincos")
+    if not worst <= 1e-4:
         fail(f"ragged shapes: a kernel disagrees with its plain version: {out}")
     return out
 
@@ -517,6 +644,7 @@ def check_roll() -> dict:
 # --------------------------------------------------------------------------
 
 def reset_counts() -> None:
+    clock_cuda.out_of_ring_symbols(DEV, reset=True)
     frontend_cuda.launches = 0
     clock_cuda.launches = 0
     viterbi_cuda.launches = 0
@@ -642,6 +770,7 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
             if c < STREAM_DECODERS and want is not None:
                 delivered[c].add(int(ctr[c, i]))
     counts = read_counts()
+    out_of_ring = clock_cuda.out_of_ring_symbols(DEV)
     peak = torch.cuda.max_memory_allocated()
     locked = int(state.locked.sum())
     step_ms = steady_ms / (BLOCKS - 1)
@@ -662,6 +791,7 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
         msamples_per_s=CHANNELS * BLOCK_LEN / (step_ms * 1e-3) / 1e6,
         step_int8_ms_per_block=int8_ms / INT8_BLOCKS,
         peak_memory_bytes=peak, launches=counts,
+        clock_symbols_read_outside_the_ring=out_of_ring,
     )
     say("main_path", **line)
     if wrong:
@@ -679,6 +809,8 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
         fail("a ring overflowed")
     if locked != CHANNELS:
         fail(f"only {locked} of {CHANNELS} channels locked at the end")
+    if out_of_ring:
+        fail(f"main path: the clock kernel read {out_of_ring} symbols outside its ring")
     check_counts("main path", counts, MAIN_PATH_KERNELS)
     return counts, state, step_ms, delivered
 
@@ -782,6 +914,7 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
         collect(c, sd.flush())
     decode_s += time.perf_counter() - t0
     counts = read_counts()
+    out_of_ring = clock_cuda.out_of_ring_symbols(DEV)
     peak = torch.cuda.max_memory_allocated()
 
     wrong = cold_wrong = partial = cold_partial = 0
@@ -824,6 +957,7 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
         first_block_ms=first_ms, steady_ms_per_block=steady,
         msamples_per_s=CHANNELS * BLOCK_LEN / (steady * 1e-3) / 1e6,
         peak_memory_bytes=peak, launches=counts,
+        clock_symbols_read_outside_the_ring=out_of_ring,
         channel_blocks=CHANNELS * nblocks,
         channel_blocks_whose_symbol_count_differs_from_the_fused_path=count_diff,
         channel_blocks_left_out_of_the_soft_comparison=shifted,
@@ -862,6 +996,8 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
              "span both delivered")
     if unlocked:
         fail(f"split path: {unlocked} streams ended unlocked")
+    if out_of_ring:
+        fail(f"split path: the clock kernel read {out_of_ring} symbols outside its ring")
     check_counts("split path", counts, SPLIT_PATH_KERNELS)
     return counts, demod, state, steady
 
@@ -945,14 +1081,14 @@ def main() -> None:
         for r in rows])
 
     counts, state, step_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db)
-    if "--profile" in sys.argv[1:]:
+    if PROFILE:
         say("profile", card=smi, path="main_path", **profile_steps(
             _Stepper(rx.step, state), base, delays, step_ms))
     del rx, state
     torch.cuda.empty_cache()
 
     split_counts, demod, dstate, split_ms = split_path(cfg, base, delays, vcdus, delivered, smi)
-    if "--profile" in sys.argv[1:]:
+    if PROFILE:
         say("profile", card=smi, path="split_path (block_batch only)", **profile_steps(
             _Stepper(demod.block_batch, dstate), base, delays, split_ms))
     del demod, dstate

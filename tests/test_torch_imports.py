@@ -55,7 +55,8 @@ def test_every_submodule_imports(probe):
 
 @pytest.mark.parametrize("module", [
     "ops.stream_cuda", "ops.frontend_cuda", "ops.clock_cuda", "ops.viterbi_cuda",
-    "ops.ring_cuda", "tools.roll_probe", "models.decoder", "models.demodulator", "convert",
+    "ops.ring_cuda", "tools.roll_probe", "tools.kernel_probe", "models.decoder",
+    "models.demodulator", "convert",
 ])
 def test_kernel_and_entry_modules_import_without_a_gpu_toolchain(probe, module):
     """Each was imported by a process that ends with no `jax`, `jaxlib`,

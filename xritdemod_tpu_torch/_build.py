@@ -15,6 +15,7 @@ fast-math, so `sinf`/`cosf`/`sqrtf` are the accurate forms.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -22,7 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["KERNELS", "build_all", "load", "build_dir", "check"]
+__all__ = ["KERNELS", "build_all", "load", "build_dir", "build_variant", "using",
+           "stage_clocks", "check"]
 
 KERNELS = ("frontend", "clock", "viterbi", "ring", "stream", "roll")
 
@@ -111,6 +113,66 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_paths(name)[1]))
         _libs[name] = lib
     return lib
+
+
+def build_variant(name: str, tag: str, defines=(), edits=()) -> ctypes.CDLL:
+    """A build of `csrc/<name>.cu` that differs from the shipped one: compiled
+    with `-D<define>` for each of `defines`, from a copy of `csrc/` in which
+    each `(old, new)` of `edits` has replaced text in whatever file holds
+    `old`.  For measurements and debug builds; the library goes to
+    `build_dir()/variants/<tag>/` and is loaded, not cached."""
+    work = build_dir() / "variants" / tag
+    work.mkdir(parents=True, exist_ok=True)
+    missing = [old for old, _ in edits]
+    for src in [*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")]:
+        text = src.read_text()
+        for old, new in edits:
+            if old in text:
+                text = text.replace(old, new)
+                missing = [m for m in missing if m != old]
+        (work / src.name).write_text(text)
+    if missing:
+        raise ValueError(f"variant {tag}: no source holds {missing[0]!r}")
+    lib = work / f"libxrit_{name}.so"
+    done = subprocess.run(
+        [_nvcc(), *_NVCC_FLAGS, *[f"-D{d}" for d in defines], "-o", str(lib),
+         str(work / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed for variant {tag} of csrc/{name}.cu:\n{done.stdout}")
+    return ctypes.CDLL(str(lib))
+
+
+@contextlib.contextmanager
+def using(name: str, lib: ctypes.CDLL):
+    """Inside the block, `load(name)` gives `lib` (a `build_variant`)."""
+    shipped = load(name)
+    _libs[name] = lib
+    try:
+        yield lib
+    finally:
+        _libs[name] = shipped
+
+
+@contextlib.contextmanager
+def stage_clocks(name: str):
+    """Inside the block, `load(name)` gives a debug build of `csrc/<name>.cu`
+    with `-DXRIT_STAGE_CLOCKS` (see `csrc/sync.cuh`).  Yields `read()`, which
+    returns, for the launches since the last read, two lists indexed by warp
+    of block 0: cycles spent waiting on barriers (summed over the launches)
+    and cycles of the whole role (of the last launch)."""
+    debug = build_variant(name, "stage_clocks", defines=("XRIT_STAGE_CLOCKS",))
+    debug.xrit_stage_clocks.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    debug.xrit_stage_clocks.restype = ctypes.c_int
+
+    def read() -> tuple[list[int], list[int]]:
+        wait, role = (ctypes.c_ulonglong * 32)(), (ctypes.c_ulonglong * 32)()
+        check(debug.xrit_stage_clocks(wait, role), "xrit_stage_clocks")
+        return list(wait), list(role)
+
+    with using(name, debug):
+        yield read
 
 
 def check(err: int, what: str) -> None:

@@ -1,176 +1,415 @@
 // Demodulator front end on channels-last (T, C) planes: AGC gain recursion,
-// N-tap RRC FIR with carried history, order-2 Costas loop.
+// N-tap RRC FIR with carried history, order-2 Costas loop, in one kernel.
 //
 // Replaces the Pallas kernel _frontend_kernel of
-// xritdemod_tpu/ops/frontend_pallas.py.  The three stages have different
-// parallelism, so they are three kernels launched back to back:
-//   agc_kernel    one thread per channel walks the T samples (the gain
-//                 recursion is sequential) and writes the scaled samples
-//                 under the N-1 history rows of the FIR window buffer;
-//   fir_kernel    fully parallel over (t, c): each thread forms R outputs
-//                 of one channel from a sliding register window, taps in
-//                 ascending order per output;
-//   costas_kernel one thread per channel walks the T filtered samples and
-//                 rotates them in place.
-// Neighbouring threads are neighbouring channels, so every access is a
-// coalesced row.  Built without FMA contraction and without fast-math:
-// each product and sum rounds as the plain PyTorch version's does, and
-// sinf/cosf/sqrtf are the accurate forms.
+// xritdemod_tpu/ops/frontend_pallas.py.
+//
+// What bounds it on an H100 is not bytes (the block once in, once out) and
+// not arithmetic but the length of one thread's dependent chain: the AGC
+// gain and the Costas phase of a channel are recursions over all T samples,
+// and a warp that walks one runs every instruction of its loop body with
+// nothing to interleave.  So the design takes everything out of the two
+// chains that is not recursive, and runs the stages side by side instead of
+// one after another.  One block serves 32 channels (lane = channel, so a
+// tile row is one 128-byte line of the planes and of shared memory, free of
+// bank conflicts) and walks the block in tiles of TR samples.  Its warps
+// have one job each and hand tiles on through rings in shared memory,
+// guarded by mbarriers (sync.cuh):
+//
+//   loader   cp.async of the next input tiles, NX tiles ahead;
+//   mag      |x| of a whole tile (needs no state);
+//   agc      the gain recursion alone, magnitudes taken to registers a batch
+//            at a time, leaving the gain each sample met;
+//   fir      six warps: x * gain into a ring of the last rows (which starts
+//            as the carried history and ends as the new one), then the N-tap
+//            product, FIR_R outputs per thread from a sliding register
+//            window fed FIR_R ring rows at a time, each output's taps in
+//            ascending order;
+//   costas   the phase recursion alone, on a batch of filter outputs held in
+//            registers, rotated in place;
+//   store    finished tiles to device memory as whole rows.
+//
+// The kernel then takes what its slowest stage takes, the Costas chain,
+// provided nothing else runs on that warp's scheduler: see `enum Role`.
+// Loop bodies are kept small (CHAIN, one shared copy of the FIR loop): a
+// lone warp that runs long straight-line code waits on instruction fetch.
+// Nothing between the stages touches device memory.  Built without FMA
+// contraction and without fast-math: each product and sum rounds as the
+// plain PyTorch version's does, sine, cosine and sqrtf are the accurate
+// forms, and the per-sample arithmetic is loops.cuh's, shared with stream.cu.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include "loops.cuh"     // agc_step, costas_step: shared with stream.cu
+#include "loops.cuh"     // agc_mag, agc_gain_step, costas_step
+#include "sync.cuh"      // mbarriers, cp.async
 
+#define TR 48            // samples per tile
+#define NX 3             // input tiles in flight
+#define NF 3             // filter-output tiles in flight
 #define FIR_R 8          // outputs per thread in the FIR
+#define FIR_WARPS (TR / FIR_R)
+#define FIR_THREADS (FIR_WARPS * 32)
+#define FIR_PAD (FIR_R - 1)
 #define FIR_MAX_TAPS 256
-#define SEQ_BATCH 16     // rows loaded ahead in the sequential stages
+#define CHAIN 4          // samples a chain warp holds in registers at a time
+#define FIR_BARRIER 1
+#define NWARPS 13
 
-__global__ void agc_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                           const float* __restrict__ hr, const float* __restrict__ hi,
-                           float* __restrict__ er, float* __restrict__ ei,
-                           const float* __restrict__ gain_in, float* __restrict__ gain_out,
-                           int T, int C, int nh,
-                           float rate, float reference, float max_gain) {
-    int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= C) return;
-    // History (C, nh) -> the first nh rows of the window buffer.
-    for (int k = 0; k < nh; ++k) {
-        er[(size_t)k * C + c] = hr[(size_t)c * nh + k];
-        ei[(size_t)k * C + c] = hi[(size_t)c * nh + k];
-    }
-    float g = gain_in[c];
-    float* orow = er + (size_t)nh * C + c;
-    float* irow = ei + (size_t)nh * C + c;
-    const float* pr = xr + c;
-    const float* pi = xi + c;
-    // Loads are batched ahead of the dependent gain chain so SEQ_BATCH rows
-    // are in flight per thread.
-    for (int t0 = 0; t0 < T; t0 += SEQ_BATCH) {
-        float vr[SEQ_BATCH], vi[SEQ_BATCH];
-#pragma unroll
-        for (int u = 0; u < SEQ_BATCH; ++u) {
-            bool in = t0 + u < T;
-            vr[u] = in ? pr[(size_t)(t0 + u) * C] : 0.0f;
-            vi[u] = in ? pi[(size_t)(t0 + u) * C] : 0.0f;
+// A warp's scheduler is its index mod 4, and a scheduler is greedy: a warp
+// with independent instructions ready (the FIR) holds back a warp that waits
+// on its own last result (a chain).  So the Costas chain, which sets the
+// kernel's time, has scheduler 3 to itself (warps 7 and 11 leave at once),
+// and the six FIR warps are two to each of the other three.
+enum Role { FIR0, FIR1, FIR2, COSTAS, FIR3, FIR4, FIR5, IDLE7, LOADER, MAG, AGC, IDLE11, STORE };
+
+struct FrontArgs {
+    const float *xr, *xi;              // (T, C) block
+    const float *hr, *hi;              // (C, ntaps-1) history in
+    float *hr_out, *hi_out;            // (C, ntaps-1) history out
+    float *yr, *yi;                    // (T, C) output
+    const float *taps;                 // (ntaps,)
+    const float *gain_in;
+    float *gain_out;
+    const float *phase_in, *freq_in;
+    float *phase_out, *freq_out;
+    int T, C, ntaps, win;              // win: rows of the FIR ring, a power of two
+    float rate, reference, max_gain;
+    float alpha, beta, freq_min, freq_max;
+};
+
+// The fixed part of shared memory; the FIR ring (2 x win x 32 floats) follows.
+struct Tiles {
+    float xr[NX][TR][32];
+    float xi[NX][TR][32];
+    float mg[NX][TR][32];              // |x|, then the gain each sample met
+    float fr[NF][TR][32];              // filter output, then the rotated output
+    float fi[NF][TR][32];
+    // taps[k + FIR_PAD] = tap k; zeros around them, so that the sliding
+    // window of FIR_R outputs needs no edge cases and runs in whole blocks
+    // of FIR_R rows (adding +-0 changes no sum).
+    float taps[FIR_MAX_TAPS + 3 * FIR_R];
+    uint64_t x_full[NX], m_full[NX], g_full[NX], x_free[NX];
+    uint64_t f_full[NF], y_full[NF], f_free[NF];
+};
+
+struct Group {                         // what every role knows of its block
+    int lane, c0, cc, ntiles;
+    bool live;                         // dead lanes shadow channel C-1, store nothing
+};
+
+__device__ __forceinline__ void load_tiles(const FrontArgs& a, Tiles& s, const Group& g) {
+    for (int i = 0; i < g.ntiles; ++i) {
+        const int xs = i % NX, turn = i / NX;
+        mbar_wait(&s.x_free[xs], (turn & 1) ^ 1);
+        const int s0 = i * TR;
+        const int n = min(TR, a.T - s0);
+        const float* pr = a.xr + (size_t)s0 * a.C + g.cc;
+        const float* pi = a.xi + (size_t)s0 * a.C + g.cc;
+#pragma unroll 8
+        for (int r = 0; r < n; ++r) {
+            cp_async_f32(&s.xr[xs][r][g.lane], pr + (size_t)r * a.C);
+            cp_async_f32(&s.xi[xs][r][g.lane], pi + (size_t)r * a.C);
         }
-#pragma unroll
-        for (int u = 0; u < SEQ_BATCH; ++u) {
-            if (t0 + u < T) {
-                float ore, oim;
-                agc_step(vr[u], vi[u], g, rate, reference, max_gain, ore, oim);
-                orow[(size_t)(t0 + u) * C] = ore;
-                irow[(size_t)(t0 + u) * C] = oim;
-            }
-        }
+        mbar_arrive_on_copies(&s.x_full[xs]);
     }
-    gain_out[c] = g;
+    cp_async_wait_all();
 }
 
-__global__ void fir_kernel(const float* __restrict__ er, const float* __restrict__ ei,
-                           float* __restrict__ yr, float* __restrict__ yi,
-                           const float* __restrict__ taps, int T, int C, int ntaps) {
-    __shared__ float tp[FIR_MAX_TAPS];
-    for (int k = threadIdx.x; k < ntaps; k += blockDim.x) tp[k] = taps[k];
-    __syncthreads();
-    int c = blockIdx.y * blockDim.x + threadIdx.x;
-    int t0 = blockIdx.x * FIR_R;
-    if (c >= C) return;
-    float ar[FIR_R], ai[FIR_R];
+__device__ __forceinline__ void magnitudes(Tiles& s, const Group& g) {
+    for (int i = 0; i < g.ntiles; ++i) {
+        const int xs = i % NX, turn = i / NX;
+        mbar_wait(&s.x_full[xs], turn & 1);
+#pragma unroll 8
+        for (int r = 0; r < TR; ++r)
+            s.mg[xs][r][g.lane] = agc_mag(s.xr[xs][r][g.lane], s.xi[xs][r][g.lane]);
+        mbar_arrive(&s.m_full[xs]);
+    }
+}
+
+__device__ __forceinline__ void agc_chain(const FrontArgs& a, Tiles& s, const Group& g) {
+    float gain = a.gain_in[g.cc];
+    for (int i = 0; i < g.ntiles; ++i) {
+        const int xs = i % NX, turn = i / NX;
+        mbar_wait(&s.m_full[xs], turn & 1);
+        const int n = min(TR, a.T - i * TR);
+        if (n == TR) {
+#pragma unroll 1
+            for (int u0 = 0; u0 < TR; u0 += CHAIN) {
+                float m[CHAIN];
 #pragma unroll
-    for (int r = 0; r < FIR_R; ++r) { ar[r] = 0.0f; ai[r] = 0.0f; }
-    // Window row j feeds output t0+r through tap j-r; rows arrive in
-    // ascending j, so each output accumulates its taps in ascending order.
-    int rows = ntaps + FIR_R - 1;
-    for (int j = 0; j < rows; ++j) {
-        int row = t0 + j;
-        if (row >= T + ntaps - 1) break;
-        float vr = er[(size_t)row * C + c];
-        float vi = ei[(size_t)row * C + c];
+                for (int u = 0; u < CHAIN; ++u) m[u] = s.mg[xs][u0 + u][g.lane];
+#pragma unroll
+                for (int u = 0; u < CHAIN; ++u) {
+                    const float met = gain;
+                    agc_gain_step(m[u], gain, a.rate, a.reference, a.max_gain);
+                    m[u] = met;
+                }
+#pragma unroll
+                for (int u = 0; u < CHAIN; ++u) s.mg[xs][u0 + u][g.lane] = m[u];
+            }
+        } else {
+#pragma unroll 1
+            for (int u = 0; u < n; ++u) {
+                const float m = s.mg[xs][u][g.lane];
+                s.mg[xs][u][g.lane] = gain;
+                agc_gain_step(m, gain, a.rate, a.reference, a.max_gain);
+            }
+        }
+        mbar_arrive(&s.g_full[xs]);
+    }
+    if (g.live) a.gain_out[g.c0 + g.lane] = gain;
+}
+
+__device__ __forceinline__ void fir_stage(const FrontArgs& a, Tiles& s, float* er, float* ei,
+                                          const Group& g, int w) {
+    const int nh = a.ntaps - 1, mask = a.win - 1, lane = g.lane;
+    const int blocks = (a.ntaps + FIR_PAD + FIR_R - 1) / FIR_R;    // of FIR_R ring rows
+    for (int m = w * 32 + lane; m < (blocks + 1) * FIR_R; m += FIR_THREADS) {
+        const int k = m - FIR_PAD;
+        s.taps[m] = (k >= 0 && k < a.ntaps) ? a.taps[k] : 0.0f;
+    }
+    // Ring row e holds row e of [history | AGC output], at e mod win.  The
+    // ring starts as zeros: a row the products below reach before it is
+    // written meets a zero tap, and must be finite.
+    for (int k = w; k < a.win; k += FIR_WARPS) {
+        er[k * 32 + lane] = k < nh ? a.hr[(size_t)g.cc * nh + k] : 0.0f;
+        ei[k * 32 + lane] = k < nh ? a.hi[(size_t)g.cc * nh + k] : 0.0f;
+    }
+    for (int i = 0; i < g.ntiles; ++i) {
+        const int xs = i % NX, turn = i / NX;
+        const int s0 = i * TR;
+        const int n = min(TR, a.T - s0);
+        // The tile's AGC output: each sample times the gain it met.  Rows
+        // past the block's end are written as zeros, never left unwritten.
+        mbar_wait(&s.g_full[xs], turn & 1);
 #pragma unroll
         for (int r = 0; r < FIR_R; ++r) {
-            int k = j - r;
-            if (k >= 0 && k < ntaps) {
-                float w = tp[k];
-                ar[r] = ar[r] + w * vr;
-                ai[r] = ai[r] + w * vi;
+            const int row = w * FIR_R + r;
+            const float gain = s.mg[xs][row][lane];
+            const int pos = ((s0 + nh + row) & mask) * 32 + lane;
+            const bool in = row < n;
+            er[pos] = in ? s.xr[xs][row][lane] * gain : 0.0f;
+            ei[pos] = in ? s.xi[xs][row][lane] * gain : 0.0f;
+        }
+        mbar_arrive(&s.x_free[xs]);
+        // One barrier a tile is enough: the ring is at least ntaps-1 + 2*TR
+        // rows, so the rows a warp writes for the next tile are none of
+        // those a slower warp still needs for this one.
+        named_barrier(FIR_BARRIER, FIR_THREADS);
+
+        // Outputs s0 + w*FIR_R + r, r < FIR_R.  Ring row e0 + j feeds output
+        // r through tap j - r; rows come in ascending j, so every output
+        // adds its taps in ascending order, product and sum rounded apart.
+        // A block of FIR_R rows is taken to registers at a time (e0 and win
+        // are multiples of FIR_R, so a block never wraps inside).
+        float ar[FIR_R], ai[FIR_R], wt[FIR_R];
+#pragma unroll
+        for (int r = 0; r < FIR_R; ++r) {
+            ar[r] = 0.0f; ai[r] = 0.0f;
+            wt[r] = s.taps[FIR_PAD - r];
+        }
+        const int e0 = s0 + w * FIR_R;
+#pragma unroll 1
+        for (int jb = 0; jb < blocks; ++jb) {
+            const int pos = ((e0 + jb * FIR_R) & mask) * 32 + lane;
+            float vr[FIR_R], vi[FIR_R], tn[FIR_R];
+#pragma unroll
+            for (int jj = 0; jj < FIR_R; ++jj) {
+                vr[jj] = er[pos + jj * 32];
+                vi[jj] = ei[pos + jj * 32];
+                tn[jj] = s.taps[jb * FIR_R + jj + 1 + FIR_PAD];
+            }
+#pragma unroll
+            for (int jj = 0; jj < FIR_R; ++jj) {
+#pragma unroll
+                for (int r = 0; r < FIR_R; ++r) {
+                    ar[r] = ar[r] + wt[r] * vr[jj];
+                    ai[r] = ai[r] + wt[r] * vi[jj];
+                }
+#pragma unroll
+                for (int r = FIR_R - 1; r > 0; --r) wt[r] = wt[r - 1];
+                wt[0] = tn[jj];
             }
         }
-    }
+        const int fs = i % NF, fturn = i / NF;
+        mbar_wait(&s.f_free[fs], (fturn & 1) ^ 1);
 #pragma unroll
-    for (int r = 0; r < FIR_R; ++r) {
-        int t = t0 + r;
-        if (t < T) {
-            yr[(size_t)t * C + c] = ar[r];
-            yi[(size_t)t * C + c] = ai[r];
+        for (int r = 0; r < FIR_R; ++r) {
+            s.fr[fs][w * FIR_R + r][lane] = ar[r];
+            s.fi[fs][w * FIR_R + r][lane] = ai[r];
+        }
+        mbar_arrive(&s.f_full[fs]);
+    }
+    // The new history: the last ntaps-1 rows of [history | AGC output].
+    // Every warp is past the last tile's barrier, so all of them are written.
+    if (g.live) {
+        for (int k = w; k < nh; k += FIR_WARPS) {
+            const int pos = ((a.T + k) & mask) * 32 + lane;
+            a.hr_out[(size_t)(g.c0 + lane) * nh + k] = er[pos];
+            a.hi_out[(size_t)(g.c0 + lane) * nh + k] = ei[pos];
         }
     }
 }
 
-__global__ void costas_kernel(float* __restrict__ yr, float* __restrict__ yi,
-                              const float* __restrict__ phase_in,
-                              const float* __restrict__ freq_in,
-                              float* __restrict__ phase_out, float* __restrict__ freq_out,
-                              int T, int C, float alpha, float beta,
-                              float freq_min, float freq_max) {
-    int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= C) return;
-    float phase = phase_in[c];
-    float freq = freq_in[c];
-    float* pr = yr + c;
-    float* pi = yi + c;
-    for (int t0 = 0; t0 < T; t0 += SEQ_BATCH) {
-        float vr[SEQ_BATCH], vi[SEQ_BATCH];
+__device__ __forceinline__ void costas_chain(const FrontArgs& a, Tiles& s, const Group& g) {
+    float phase = a.phase_in[g.cc], freq = a.freq_in[g.cc];
+    for (int i = 0; i < g.ntiles; ++i) {
+        const int fs = i % NF, fturn = i / NF;
+        mbar_wait(&s.f_full[fs], fturn & 1);
+        const int n = min(TR, a.T - i * TR);
+        if (n == TR) {
+#pragma unroll 1
+            for (int u0 = 0; u0 < TR; u0 += CHAIN) {
+                float vr[CHAIN], vi[CHAIN];
 #pragma unroll
-        for (int u = 0; u < SEQ_BATCH; ++u) {
-            bool in = t0 + u < T;
-            vr[u] = in ? pr[(size_t)(t0 + u) * C] : 0.0f;
-            vi[u] = in ? pi[(size_t)(t0 + u) * C] : 0.0f;
-        }
+                for (int u = 0; u < CHAIN; ++u) {
+                    vr[u] = s.fr[fs][u0 + u][g.lane];
+                    vi[u] = s.fi[fs][u0 + u][g.lane];
+                }
 #pragma unroll
-        for (int u = 0; u < SEQ_BATCH; ++u) {
-            if (t0 + u < T) {
+                for (int u = 0; u < CHAIN; ++u) {
+                    float orr, oi;
+                    costas_step(vr[u], vi[u], phase, freq, a.alpha, a.beta,
+                                a.freq_min, a.freq_max, orr, oi);
+                    vr[u] = orr; vi[u] = oi;
+                }
+#pragma unroll
+                for (int u = 0; u < CHAIN; ++u) {
+                    s.fr[fs][u0 + u][g.lane] = vr[u];
+                    s.fi[fs][u0 + u][g.lane] = vi[u];
+                }
+            }
+        } else {
+#pragma unroll 1
+            for (int u = 0; u < n; ++u) {
                 float orr, oi;
-                costas_step(vr[u], vi[u], phase, freq, alpha, beta, freq_min, freq_max,
-                            orr, oi);
-                pr[(size_t)(t0 + u) * C] = orr;
-                pi[(size_t)(t0 + u) * C] = oi;
+                costas_step(s.fr[fs][u][g.lane], s.fi[fs][u][g.lane], phase, freq,
+                            a.alpha, a.beta, a.freq_min, a.freq_max, orr, oi);
+                s.fr[fs][u][g.lane] = orr;
+                s.fi[fs][u][g.lane] = oi;
             }
         }
+        mbar_arrive(&s.y_full[fs]);
     }
-    phase_out[c] = phase;
-    freq_out[c] = freq;
+    if (g.live) {
+        a.phase_out[g.c0 + g.lane] = phase;
+        a.freq_out[g.c0 + g.lane] = freq;
+    }
 }
 
-// x (T, C); hist (C, nh); ext scratch (T+nh, C); y (T, C); state vectors (C,).
+__device__ __forceinline__ void store_tiles(const FrontArgs& a, Tiles& s, const Group& g) {
+    for (int i = 0; i < g.ntiles; ++i) {
+        const int fs = i % NF, fturn = i / NF;
+        mbar_wait(&s.y_full[fs], fturn & 1);
+        const int s0 = i * TR;
+        const int n = min(TR, a.T - s0);
+        if (g.live) {
+            float* pr = a.yr + (size_t)s0 * a.C + g.c0 + g.lane;
+            float* pi = a.yi + (size_t)s0 * a.C + g.c0 + g.lane;
+#pragma unroll 8
+            for (int r = 0; r < n; ++r) {
+                pr[(size_t)r * a.C] = s.fr[fs][r][g.lane];
+                pi[(size_t)r * a.C] = s.fi[fs][r][g.lane];
+            }
+        }
+        mbar_arrive(&s.f_free[fs]);
+    }
+}
+
+__global__ void __launch_bounds__(NWARPS * 32, 1) frontend_kernel(const FrontArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    Tiles& s = *reinterpret_cast<Tiles*>(smem);
+    float* er = reinterpret_cast<float*>(smem + sizeof(Tiles));
+    float* ei = er + a.win * 32;
+
+    if (threadIdx.x == 0) {
+        for (int k = 0; k < NX; ++k) {
+            mbar_init(&s.x_full[k], 32);
+            mbar_init(&s.m_full[k], 32);
+            mbar_init(&s.g_full[k], 32);
+            mbar_init(&s.x_free[k], FIR_THREADS);
+        }
+        for (int k = 0; k < NF; ++k) {
+            mbar_init(&s.f_full[k], FIR_THREADS);
+            mbar_init(&s.y_full[k], 32);
+            mbar_init(&s.f_free[k], 32);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();       // the last block-wide barrier: roles part here
+
+    Group g;
+    g.lane = threadIdx.x & 31;
+    g.c0 = blockIdx.x * 32;
+    g.live = g.c0 + g.lane < a.C;
+    g.cc = g.live ? g.c0 + g.lane : a.C - 1;
+    g.ntiles = (a.T + TR - 1) / TR;
+    // One call of each role: six copies of the FIR loop would not share the
+    // instruction cache of the schedulers they run on.
+    const int role = threadIdx.x >> 5;
+    const long long role_t0 = role_clock_start();
+    if (role == LOADER) load_tiles(a, s, g);
+    else if (role == MAG) magnitudes(s, g);
+    else if (role == AGC) agc_chain(a, s, g);
+    else if (role == COSTAS) costas_chain(a, s, g);
+    else if (role == STORE) store_tiles(a, s, g);
+    else if (role != IDLE7 && role != IDLE11) fir_stage(a, s, er, ei, g, role < COSTAS ? role : role - 1);
+    role_clock_stop(role_t0);
+}
+
+// loops.cuh's sincos_exact against the library's sinf and cosf on n arguments
+// spread evenly over [lo, hi]: *mismatches (zeroed by the caller) receives
+// the number whose sine or cosine differs in any bit.
+__global__ void trig_check_kernel(float lo, float hi, long long n, unsigned long long* mismatches) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    unsigned long long bad = 0;
+    for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += stride) {
+        const float x = lo + (hi - lo) * (float)((double)k / (double)(n - 1));
+        float sn, cs;
+        sincos_exact(x, sn, cs);
+        bad += __float_as_uint(sn) != __float_as_uint(sinf(x))
+            || __float_as_uint(cs) != __float_as_uint(cosf(x));
+    }
+    if (bad) atomicAdd(mismatches, bad);
+}
+
+extern "C" int xrit_trig_mismatches(float lo, float hi, long long n, void* mismatches,
+                                    void* stream) {
+    if (n < 2) return (int)cudaErrorInvalidValue;
+    trig_check_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(
+        lo, hi, n, (unsigned long long*)mismatches);
+    return (int)cudaGetLastError();
+}
+
+// x, y (T, C); hist in and out (C, ntaps-1); state vectors (C,).  One launch.
 extern "C" int xrit_frontend(
     const void* xr, const void* xi, const void* hr, const void* hi,
-    void* er, void* ei, void* yr, void* yi, const void* taps,
+    void* hr_out, void* hi_out, void* yr, void* yi, const void* taps,
     const void* gain_in, void* gain_out,
     const void* phase_in, const void* freq_in, void* phase_out, void* freq_out,
     int T, int C, int ntaps,
     float rate, float reference, float max_gain,
     float alpha, float beta, float freq_min, float freq_max, void* stream) {
-    if (ntaps < 1 || ntaps > FIR_MAX_TAPS) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    // One warp per block spreads the sequential stages over as many SMs as
-    // there are channel groups.
-    const int seq_threads = 32;
-    dim3 seq_grid((C + seq_threads - 1) / seq_threads);
-    agc_kernel<<<seq_grid, seq_threads, 0, s>>>(
-        (const float*)xr, (const float*)xi, (const float*)hr, (const float*)hi,
-        (float*)er, (float*)ei, (const float*)gain_in, (float*)gain_out,
-        T, C, ntaps - 1, rate, reference, max_gain);
-    int err = (int)cudaGetLastError();
+    if (ntaps < 1 || ntaps > FIR_MAX_TAPS || T < 1 || C < 1) return (int)cudaErrorInvalidValue;
+    FrontArgs a;
+    a.xr = (const float*)xr; a.xi = (const float*)xi;
+    a.hr = (const float*)hr; a.hi = (const float*)hi;
+    a.hr_out = (float*)hr_out; a.hi_out = (float*)hi_out;
+    a.yr = (float*)yr; a.yi = (float*)yi;
+    a.taps = (const float*)taps;
+    a.gain_in = (const float*)gain_in; a.gain_out = (float*)gain_out;
+    a.phase_in = (const float*)phase_in; a.freq_in = (const float*)freq_in;
+    a.phase_out = (float*)phase_out; a.freq_out = (float*)freq_out;
+    a.T = T; a.C = C; a.ntaps = ntaps;
+    a.win = 64;
+    while (a.win < ntaps - 1 + 2 * TR) a.win *= 2;
+    a.rate = rate; a.reference = reference; a.max_gain = max_gain;
+    a.alpha = alpha; a.beta = beta; a.freq_min = freq_min; a.freq_max = freq_max;
+    const size_t shared = sizeof(Tiles) + (size_t)2 * a.win * 32 * sizeof(float);
+    int err = (int)cudaFuncSetAttribute(
+        frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
     if (err) return err;
-    const int fir_threads = 128;
-    dim3 fir_grid((T + FIR_R - 1) / FIR_R, (C + fir_threads - 1) / fir_threads);
-    fir_kernel<<<fir_grid, fir_threads, 0, s>>>(
-        (const float*)er, (const float*)ei, (float*)yr, (float*)yi,
-        (const float*)taps, T, C, ntaps);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    costas_kernel<<<seq_grid, seq_threads, 0, s>>>(
-        (float*)yr, (float*)yi, (const float*)phase_in, (const float*)freq_in,
-        (float*)phase_out, (float*)freq_out, T, C, alpha, beta, freq_min, freq_max);
+    frontend_kernel<<<(C + 31) / 32, NWARPS * 32, shared, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

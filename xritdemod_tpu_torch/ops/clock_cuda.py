@@ -2,17 +2,20 @@
 
 Replaces `xritdemod_tpu/ops/clock_pallas.py` (`_clock_pallas_core` /
 `_mm_kernel`, entries `clock_recovery_block_pallas_batch[_cl]`), exact
-per-symbol mmse form.  One thread per channel runs the recursion of
-`ops/clock_recovery.py` over `[tail | block]` in channels-last layout,
-indexing its own sample position directly — none of the TPU kernel's window
-staging, barrel alignment or block segmentation is needed.
+per-symbol mmse form: the recursion of `ops/clock_recovery.py` over
+`[tail | block]` in channels-last layout, each channel indexing its own
+sample position.
 
 What bounds it on an H100: the bytes are one read of the block and one
 write of the symbols, but each channel is a chain of ~T/sps dependent
-symbols whose next load address comes out of the loop filter, so the
-sequential depth binds, with only C threads in flight.  The design keeps a
-warp's 32 channels on neighbouring addresses, prefetches ahead into L2 and
-writes symbols out as coalesced rows through a shared-memory transpose.
+symbols whose next samples lie where the loop filter says, with only C
+threads in flight.  One block serves 32 channels with three warps: a loader
+keeps a 256-row ring of the group's samples in shared memory ahead of the
+walk (`cp.async`, `mbarrier`s), the chain warp reads its eight samples and
+its tap row from shared memory, and a third warp writes the symbols out as
+coalesced rows.  A lane whose position lies outside the ring (the clocks of
+one group may drift apart) reads that symbol's samples from device memory
+inside the kernel; `out_of_ring_symbols` counts those.
 
 The plain version is `ops/clock_recovery.clock_recovery_block_batch`; a CPU
 tensor takes it, a CUDA tensor takes the kernel.
@@ -39,10 +42,32 @@ __all__ = [
     "clock_recovery_block_kernel_batch",
     "clock_recovery_block_kernel_batch_cl",
     "clock_recovery_block_plain_cl",
+    "out_of_ring_symbols",
     "launches",
 ]
 
 launches = 0
+
+# The kernel's warps in order of warp index (`enum Role` of csrc/clock.cu).
+ROLES = ("chain", "loader", "store")
+
+# Per device: a one-element int32 tensor to which every launch adds the
+# symbols whose samples it read from device memory because they lay outside
+# the kernel's shared-memory ring.
+_slow: dict = {}
+
+
+def out_of_ring_symbols(device, reset: bool = False) -> int:
+    """Symbols the kernel has read from device memory instead of its ring on
+    `device` since the last reset (synchronises: for checks, not for the
+    receive path)."""
+    t = _slow.get(torch.device(device))
+    if t is None:
+        return 0
+    n = int(t.item())
+    if reset:
+        t.zero_()
+    return n
 
 
 def _lib():
@@ -103,12 +128,16 @@ def clock_recovery_block_kernel_batch_cl(
         state.p.re.contiguous(), state.p.im.contiguous(),
         state.c.re.contiguous(), state.c.im.contiguous(),
     ]
-    outs = [sr, si, nvalid, mu_o, om_o, ii_o, pr_o, pi_o, cr_o, ci_o]
-    ptrs = (ctypes.c_void_p * 22)(*[t.data_ptr() for t in ins + outs])
+    slow = _slow.get(dev)
+    if slow is None:
+        slow = _slow[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    outs = [sr, si, nvalid, mu_o, om_o, ii_o, pr_o, pi_o, cr_o, ci_o, slow]
+    ptrs = (ctypes.c_void_p * 23)(*[t.data_ptr() for t in ins + outs])
+    omega_lim = params.omega * params.omega_relative_limit
     with torch.cuda.device(dev):
         err = _lib()(
             ctypes.cast(ptrs, ctypes.c_void_p), T, C, S,
-            f32(params.omega), f32(params.omega * params.omega_relative_limit),
+            f32(params.omega), f32(omega_lim),
             f32(params.gain_omega), f32(params.gain_mu),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -2,16 +2,18 @@
 
 Replaces `xritdemod_tpu/ops/frontend_pallas.py::demod_frontend_pallas`
 (`_frontend_kernel`), exact per-sample forms (its `block_k=0`, float32).
-The kernels are in `csrc/frontend.cu`: AGC and Costas are per-channel
-recursions (one thread per channel, T dependent steps), the RRC product is a
-direct N-tap dot over `[history | AGC output]`, parallel over (t, c).
+The kernel is `csrc/frontend.cu`: one launch, one block per 32 channels,
+whose warps are the stages of a pipeline over shared-memory tiles (loader,
+magnitudes, AGC gain chain, six FIR warps, Costas chain, store), handed on
+through `mbarrier`s.  The RRC product is the kernel's own code, taps in
+ascending order; no scratch tensor lies between the stages and the new FIR
+history is an output of the kernel.
 
 What bounds it on an H100: by bytes the work is small (the block is read
-once and written once; the AGC output makes one more round trip through the
-FIR window buffer), so the floor is memory time; in practice the two
-sequential stages are bound by their T-step dependent chains with only C
-threads in flight.  The channels-last layout keeps every access a coalesced
-row, and one warp per block spreads the channel groups over the SMs.
+once and written once).  The time is the length of one channel's Costas
+recursion, T dependent steps on one warp; the design takes all other work
+off that warp and off its scheduler, so the kernel runs at the pace of that
+chain alone.
 
 The plain version below composes the exact recursions of `ops/agc.py` and
 `ops/costas.py` with the same tap order; a CPU tensor takes it, a CUDA
@@ -31,9 +33,14 @@ from xritdemod_tpu_torch.ops.agc import AgcParams, agc_gains
 from xritdemod_tpu_torch.ops.costas import CostasParams, CostasState, costas_steps
 from xritdemod_tpu_torch.utils.cplx import CF32
 
-__all__ = ["demod_frontend", "demod_frontend_plain", "launches"]
+__all__ = ["demod_frontend", "demod_frontend_plain", "trig_mismatches", "launches"]
 
 launches = 0
+
+# The kernel's warps in order of warp index (`enum Role` of csrc/frontend.cu);
+# None for a warp that leaves at once.  Names the rows of a stage-clock read.
+ROLES = ("fir0", "fir1", "fir2", "costas", "fir3", "fir4", "fir5", None,
+         "loader", "mag", "agc", None, "store")
 
 
 def _fir_cl(ext: torch.Tensor, taps: torch.Tensor, T: int) -> torch.Tensor:
@@ -110,6 +117,25 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+def trig_mismatches(lo: float, hi: float, n: int, device) -> int:
+    """How many of `n` arguments spread evenly over `[lo, hi]` give a sine or
+    cosine in the kernels' Costas step (`csrc/loops.cuh::sincos_exact`) that
+    differs in any bit from the CUDA library's `sinf` / `cosf`.  Runs on the
+    card and synchronises: a check, not part of the receive path."""
+    fn = _build.load("frontend").xrit_trig_mismatches
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_float, ctypes.c_float, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    device = torch.device(device)
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = fn(_f32(lo), _f32(hi), int(n), bad.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "xrit_trig_mismatches")
+    return int(bad.item())
+
+
 @torch.no_grad()
 def demod_frontend(
     x: CF32, gain, rrc_hist: CF32, costas_state: CostasState,
@@ -147,8 +173,8 @@ def demod_frontend(
     hr, hi = rrc_hist.re.contiguous(), rrc_hist.im.contiguous()
     taps_c, gain_c = taps.contiguous(), gain.contiguous()
     phase_c, freq_c = costas_state.phase.contiguous(), costas_state.freq.contiguous()
-    er = torch.empty((T + nh, C), dtype=torch.float32, device=dev)
-    ei = torch.empty_like(er)
+    hr_out = torch.empty((C, nh), dtype=torch.float32, device=dev)
+    hi_out = torch.empty_like(hr_out)
     yr = torch.empty((T, C), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
     gain_out = torch.empty_like(gain)
@@ -157,7 +183,7 @@ def demod_frontend(
     with torch.cuda.device(dev):
         err = _lib()(
             xr.data_ptr(), xi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-            er.data_ptr(), ei.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            hr_out.data_ptr(), hi_out.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             taps_c.data_ptr(), gain_c.data_ptr(), gain_out.data_ptr(),
             phase_c.data_ptr(), freq_c.data_ptr(),
             phase_out.data_ptr(), freq_out.data_ptr(),
@@ -169,5 +195,4 @@ def demod_frontend(
         )
     _build.check(err, "xrit_frontend")
     launches += 1
-    new_hist = CF32(er[T:].t().contiguous(), ei[T:].t().contiguous())
-    return CF32(yr, yi), gain_out, new_hist, CostasState(phase_out, freq_out)
+    return CF32(yr, yi), gain_out, CF32(hr_out, hi_out), CostasState(phase_out, freq_out)
