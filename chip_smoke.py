@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA device, nvcc, no network
     python3 chip_smoke.py --profile  # also: device time of a step by kernel name,
-                                     # and which warp of K1 and K2 sets their time
+                                     # and which warp of K1, K2, K5, K6 sets their time
 
 Builds the six CUDA libraries from `xritdemod_tpu_torch/csrc/`, holds every
 kernel against its plain PyTorch version on the card at the shapes its path
@@ -181,17 +181,17 @@ def make_block(base: CF32, delays: np.ndarray, b: int, gen: torch.Generator) -> 
 # kernels against their plain versions, at the main path's shapes
 # --------------------------------------------------------------------------
 
-def stage_clocks(kernel: str, roles, launch) -> None:
-    """`--profile`: one launch of a debug build of `kernel` that counts, for
-    its first block, the cycles every warp spends waiting on a barrier and the
-    cycles of its whole role.  The stage that hardly waits sets the kernel's
-    time."""
-    with _build.stage_clocks(kernel) as read:
+def stage_clocks(library: str, roles, launch, kernel: str | None = None) -> None:
+    """`--profile`: one launch of a debug build of `library` that counts, for
+    its kernel's first block, the cycles every warp spends waiting on a
+    barrier and the cycles of its whole role.  The stage that hardly waits
+    sets the kernel's time."""
+    with _build.stage_clocks(library) as read:
         launch()
         read()                      # the first launch also loads the library
         launch()
         wait, role = read()
-    say("stage_clocks", kernel=kernel, warps=[
+    say("stage_clocks", kernel=kernel or library, warps=[
         dict(role=name, cycles=role[i], waiting_share=wait[i] / max(role[i], 1))
         for i, name in enumerate(roles) if name is not None])
 
@@ -291,6 +291,9 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     if not max(errs) <= 1e-4:
         fail(f"agc_block_kernel disagrees with its plain version: {errs}")
     ms = time_ms(lambda: stream_cuda.agc_block_kernel(*agc_args), 3)
+    if PROFILE:
+        stage_clocks("stream", stream_cuda.ROLES["agc_block"],
+                     lambda: stream_cuda.agc_block_kernel(*agc_args), "agc_block")
     bms, by = bound(4 * (4 * T * C + 2 * C), T * C * 10.0)
     rows.append(dict(
         name="agc_block", route="cuda", source="xritdemod_tpu_torch/csrc/stream.cu",
@@ -310,6 +313,9 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     if not max(errs) <= 1e-4:
         fail(f"costas_block_kernel disagrees with its plain version: {errs}")
     ms = time_ms(lambda: stream_cuda.costas_block_kernel(*cos_args), 3)
+    if PROFILE:
+        stage_clocks("stream", stream_cuda.ROLES["costas_block"],
+                     lambda: stream_cuda.costas_block_kernel(*cos_args), "costas_block")
     bms, by = bound(4 * (4 * T * C + 4 * C), T * C * 40.0)
     rows.append(dict(
         name="costas_block", route="cuda", source="xritdemod_tpu_torch/csrc/stream.cu",
@@ -489,8 +495,9 @@ def check_trig() -> dict:
 def check_ragged(rx: FusedReceiver) -> dict:
     """The kernels against their plain versions at small sizes that are no
     multiple of any tile (see RAGGED_SHAPES), where a wrong edge guard would
-    show.  The front end and the clock run two chained blocks of every shape,
-    each version carrying its own state.  Returns the largest differences."""
+    show.  The front end, the clock and the standalone AGC and Costas stages
+    run two chained blocks of every shape, each version carrying its own
+    state.  Returns the largest differences."""
     demod = rx._demod
     g = torch.Generator(device=DEV).manual_seed(SEED + 3)
     rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
@@ -529,21 +536,27 @@ def check_ragged(rx: FusedReceiver) -> dict:
         fail("ragged ring differs from its plain version")
     out["ring"] = 0.0
 
-    # The standalone stages on (C, T), against `agc_block` / `costas_block`.
-    C, T = RAGGED_SHAPES[0]
-    x = ragged_signal(T, C, rnd)
-    xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-    gain = demod.init_state_batch(C).agc_gain + rnd(C).abs()
-    ka = stream_cuda.agc_block_kernel(xc, gain, demod._agc)
-    pa = agc_op.agc_block(xc, gain, demod._agc)
-    out["agc_block"] = max(max_err(ka[0].re, pa[0].re), max_err(ka[0].im, pa[0].im),
-                           max_err(ka[1], pa[1]))
-    cst = costas_op.CostasState(rnd(C, scale=2.0), rnd(C, scale=0.01))
-    kc = stream_cuda.costas_block_kernel(xc, cst, demod._costas)
-    pc = costas_op.costas_block(xc, cst, demod._costas)
-    out["costas_block"] = max(max_err(kc[0].re, pc[0].re), max_err(kc[0].im, pc[0].im),
-                              max_err(kc[1].phase, pc[1].phase),
-                              max_err(kc[1].freq, pc[1].freq))
+    # The standalone stages on (C, T), against `agc_block` / `costas_block`:
+    # two chained blocks of every shape, each version carrying its own state;
+    # the Costas loop takes the plain AGC's output.  Every second shape runs
+    # the AGC without its max-gain clamp (max_gain 0: the kernel's other form).
+    out["agc_block"] = out["costas_block"] = 0.0
+    for k, (C, T) in enumerate(RAGGED_SHAPES):
+        agc_p = demod._agc if k % 2 == 0 else demod._agc._replace(max_gain=0.0)
+        kg = pg = demod.init_state_batch(C).agc_gain + rnd(C).abs()
+        kc = pc = costas_op.CostasState(rnd(C, scale=2.0), rnd(C, scale=0.01))
+        for _ in range(2):
+            x = ragged_signal(T, C, rnd)
+            xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+            ka, kg = stream_cuda.agc_block_kernel(xc, kg, agc_p)
+            pa, pg = agc_op.agc_block(xc, pg, agc_p)
+            out["agc_block"] = max(out["agc_block"], max_err(ka.re, pa.re),
+                                   max_err(ka.im, pa.im), max_err(kg, pg))
+            ky, kc = stream_cuda.costas_block_kernel(pa, kc, demod._costas)
+            py, pc = costas_op.costas_block(pa, pc, demod._costas)
+            out["costas_block"] = max(out["costas_block"], max_err(ky.re, py.re),
+                                      max_err(ky.im, py.im), max_err(kc.phase, pc.phase),
+                                      max_err(kc.freq, pc.freq))
 
     # The roll: ragged lengths, amounts 0, 1, L-1, beyond one turn, negative.
     for Cr_, L_ in ((5, 37), (3, 1000), (2, 2049)):

@@ -120,11 +120,14 @@ class TestFrontEndChained:
 
 
 class TestAgcSplit:
-    """(b) The kernel computes |x| for a whole tile in one warp, walks the
-    gain recursion over the magnitudes in another and forms x * gain in a
+    """(b) The kernels compute |x| for a whole tile in one warp, walk the
+    gain recursion over the magnitudes in another and form x * gain in a
     third.  That is `agc_gains(x.abs())` then `x * gains`; it must equal the
     per-sample step (magnitude, products and gain update of one sample
-    together, as `csrc/loops.cuh::agc_step` has it) bit for bit."""
+    together, as `csrc/loops.cuh::agc_step` has it) bit for bit.  Layout
+    "tc" is the fused front end's `(T, C)` block; "ct" is the standalone
+    AGC's `(C, T)` block (`csrc/stream.cu`), whose split must also be
+    `agc.agc_block` bit for bit, at ragged sizes."""
 
     @staticmethod
     def _per_sample(re, im, mag_of, g, p):
@@ -142,19 +145,40 @@ class TestAgcSplit:
                 g = np.minimum(g, mx)
         return yr, yi, g
 
-    @pytest.mark.parametrize("scale, gain0", [(0.3, 1.0), (1e-5, 3999.0), (30.0, 2.5)],
-                             ids=["random", "clamped_to_max_gain", "strong_input"])
-    def test_split_form_is_the_per_sample_step(self, scale, gain0):
+    @pytest.mark.parametrize("layout, T, C, scale, gain0", [
+        pytest.param("tc", 1500, 4, 0.3, 1.0, id="random"),
+        pytest.param("tc", 1500, 4, 1e-5, 3999.0, id="clamped_to_max_gain"),
+        pytest.param("tc", 1500, 4, 30.0, 2.5, id="strong_input"),
+        pytest.param("ct", 47, 5, 0.3, 1.0, id="ct_5x47"),
+        pytest.param("ct", 1003, 33, 0.3, 1.0, id="ct_33x1003"),
+        pytest.param("ct", 1003, 33, 1e-5, 3999.0, id="ct_33x1003_clamped_to_max_gain"),
+    ])
+    def test_split_form_is_the_per_sample_step(self, layout, T, C, scale, gain0):
         rng = np.random.default_rng(321)
-        T, C = 1500, 4
-        re = rng.normal(0, scale, (T, C)).astype(np.float32)
-        im = rng.normal(0, scale, (T, C)).astype(np.float32)
+        shape = (T, C) if layout == "tc" else (C, T)
+        re = rng.normal(0, scale, shape).astype(np.float32)
+        im = rng.normal(0, scale, shape).astype(np.float32)
         g0 = np.full(C, gain0, np.float32)
         p = tagc.AgcParams()
-        mag_of = lambda r, i: TCF(_t(r), _t(i)).abs().numpy()
-        yr, yi, g = self._per_sample(re, im, mag_of, g0.copy(), p)
         x = TCF(_t(re), _t(im))
-        gains, tg = tagc.agc_gains(x.abs(), _t(g0), p)
+        mag = x.abs()
+        if layout == "tc":
+            mag_of = lambda r, i: TCF(_t(r), _t(i)).abs().numpy()
+            gains, tg = tagc.agc_gains(mag, _t(g0), p)
+            yr, yi, g = self._per_sample(re, im, mag_of, g0.copy(), p)
+        else:
+            # The kernel's order: magnitudes of the (C, T) tile, the gain
+            # recursion along time, the products in (C, T).  Sample n's
+            # magnitudes are the block's (see `_per_sample`).
+            mag_of = lambda r, i, cols=iter(mag.t().numpy()): next(cols)
+            gains_tc, tg = tagc.agc_gains(mag.t(), _t(g0), p)
+            gains = gains_tc.t()
+            yr, yi, g = (a.T if a.ndim == 2 else a for a in
+                         self._per_sample(re.T, im.T, mag_of, g0.copy(), p))
+            want, wg = tagc.agc_block(x, _t(g0), p)
+            np.testing.assert_array_equal((x.re * gains).numpy(), want.re.numpy())
+            np.testing.assert_array_equal((x.im * gains).numpy(), want.im.numpy())
+            np.testing.assert_array_equal(tg.numpy(), wg.numpy())
         np.testing.assert_array_equal((x.re * gains).numpy(), yr)
         np.testing.assert_array_equal((x.im * gains).numpy(), yi)
         np.testing.assert_array_equal(tg.numpy(), g)

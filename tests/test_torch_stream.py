@@ -9,6 +9,9 @@ the same float32 operations in order (1e-6); the Costas loop calls sin/cos
 of two different libraries (1e-5 on output and phase, 1e-6 on freq).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +25,7 @@ from xritdemod_tpu.ops.stream_pallas import agc_block_pallas, costas_block_palla
 from xritdemod_tpu.utils.cplx import CF32 as JCF
 from xritdemod_tpu_torch.ops import agc as tagc
 from xritdemod_tpu_torch.ops import costas as tcostas
-from xritdemod_tpu_torch.ops import stream_cuda
+from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, stream_cuda
 from xritdemod_tpu_torch.utils.cplx import CF32 as TCF
 
 C, T = 128, 1024
@@ -150,3 +153,39 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch(rng, stage):
     np.testing.assert_array_equal(got[0].re.numpy(), want[0].re.numpy())
     np.testing.assert_array_equal(got[0].im.numpy(), want[0].im.numpy())
     assert (stream_cuda.launches_agc, stream_cuda.launches_costas) == before
+
+
+# The warp-specialised kernels' warps by index, and the recursion that sets
+# each one's time.  K1's AGC gain chain is a recursion too, but it waits on
+# the Costas chain most of the time and shares scheduler 2 with two FIR warps.
+WARP_LAYOUTS = {
+    "frontend": (frontend_cuda.ROLES, "costas"),
+    "clock": (clock_cuda.ROLES, "chain"),
+    "agc_block": (stream_cuda.ROLES["agc_block"], "agc"),
+    "costas_block": (stream_cuda.ROLES["costas_block"], "costas"),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(WARP_LAYOUTS))
+def test_chain_warp_has_its_scheduler_to_itself(kernel):
+    """A warp's scheduler is its index mod 4, and a scheduler issues
+    greedily: a busy warp beside a chain warp slows the chain.  So no other
+    busy role (None is a warp that leaves at once) shares the chain's."""
+    roles, chain = WARP_LAYOUTS[kernel]
+    assert roles.count(chain) == 1 and len(roles) <= 32
+    w = roles.index(chain)
+    beside = [r for i, r in enumerate(roles) if i != w and i % 4 == w % 4 and r is not None]
+    assert beside == []
+    assert "loader" in roles and "store" in roles
+
+
+def test_stream_roles_match_the_kernel_source():
+    """`ROLES` names the warps `csrc/stream.cu` launches: loader, magnitude,
+    store, chain by `enum Role`, then the AGC's further magnitude warps."""
+    src = (Path(stream_cuda.__file__).parents[1] / "csrc" / "stream.cu").read_text()
+    assert "enum Role { LOADER, MAG, STORE, CHAIN_WARP };" in src
+    mags = int(re.search(r"#define MAG_WARPS (\d+)", src).group(1))
+    agc, costas = stream_cuda.ROLES["agc_block"], stream_cuda.ROLES["costas_block"]
+    assert agc[:4] == ("loader", "mag", "store", "agc") and agc.count("mag") == mags
+    assert len(agc) == (4 if mags == 1 else 3 + mags)
+    assert costas == ("loader", None, "store", "costas")

@@ -4,17 +4,18 @@
 Replaces `xritdemod_tpu/ops/stream_pallas.py` (`agc_block_pallas` /
 `_agc_kernel`, `costas_block_pallas` / `_costas_kernel`), the exact
 sequential recursions.  Those wrappers transpose to channels-last planes
-around the kernel; here the kernel takes and gives `(C, T)` itself: a warp
-owns 32 channels and stages 32 x 32 tiles through shared memory, reading and
-writing each channel's row along time (coalesced) while each lane walks its
-own channel.  The per-sample arithmetic is `csrc/loops.cuh`, shared with the
-fused front end (`csrc/frontend.cu`).
+around the kernel; here the kernel takes and gives `(C, T)` itself.
 
 What bounds them on an H100: by bytes each reads the block once and writes
-it once, but each channel is a chain of T dependent steps with only C
-threads in flight, so the chain's length binds, as in the fused front end.
-The tile fetch runs one tile ahead of the walk (`cp.async`, two buffers) so
-memory latency hides behind the chain.
+it once, but each channel is a chain of T dependent steps walked by one
+lane.  So each kernel is warp-specialised as the fused front end is
+(`csrc/frontend.cu`): per block of channels, a loader warp (`cp.async` of
+channel rows into padded shared-memory tiles, several tiles ahead), for the
+AGC magnitude warps (`|x|`, no state), a chain warp that walks the
+recursion alone on its scheduler (the AGC's gain, or the Costas loop), and a
+store warp (for the AGC also `x * gain`), handed on through `mbarrier`s.
+`ROLES` names each kernel's warps.  The per-sample arithmetic is
+`csrc/loops.cuh`, shared with the fused front end.
 
 The plain versions are `ops/agc.agc_block` and `ops/costas.costas_block`; a
 CPU tensor takes them, a CUDA tensor takes the kernels.
@@ -33,6 +34,7 @@ from xritdemod_tpu_torch.ops.costas import CostasParams, CostasState, costas_blo
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = [
+    "ROLES",
     "agc_block_kernel",
     "costas_block_kernel",
     "launches_agc",
@@ -41,6 +43,14 @@ __all__ = [
 
 launches_agc = 0
 launches_costas = 0
+
+# Each kernel's warps in order of warp index (`enum Role` of csrc/stream.cu;
+# a warp's scheduler is its index mod 4); None for a warp that leaves at
+# once.  Names the rows of a stage-clock read.
+ROLES = {
+    "agc_block": ("loader", "mag", "store", "agc", "mag", "mag"),
+    "costas_block": ("loader", None, "store", "costas"),
+}
 
 
 def _fn(name: str, nptr: int, nfloat: int):

@@ -1,34 +1,39 @@
-"""Probe: what sets the time of the front-end (K1) and clock (K2) kernels.
+"""Probe: what sets the time of the warp-specialised kernels: the front end
+(K1), the clock (K2), the standalone AGC (K5) and Costas loop (K6).
 
     python -m xritdemod_tpu_torch.tools.kernel_probe            # needs a GPU and nvcc
+    python -m xritdemod_tpu_torch.tools.kernel_probe agc_block costas_block
 
-Times the two kernels at the shipped LRIT shape (2048 channels x 131072
-samples, a synthetic BPSK-like block) as they are, and then variants of
-their sources that change one thing each (`VARIANTS`: a stage's work taken
-out, a loop unrolled further or less, a sleep in the barrier wait), built by
-`_build.build_variant` from edited copies of `csrc/`.  A variant that removes
-work computes something else: its time says what that work costs beside the
-kernel's dependent chain, nothing more.  Last, it builds and runs
-`csrc/sched_probe.cu`, which shows which warps of a block share a scheduler.
-One JSON line per measurement, the card's name and power limit on each.
+Times the kernels named on the command line (all four by default) at the
+shipped LRIT shape (2048 channels x 131072 samples, a synthetic BPSK-like
+block) as they are, and then variants of their sources that change one
+thing each (`VARIANTS`: a stage's work taken out, a loop unrolled further or
+less, a sleep in the barrier wait, channels per block, tile stages, warps
+of a stage), built by `_build.build_variant` from edited copies of `csrc/`.
+A variant that removes work computes something else: its time says what
+that work costs beside the kernel's dependent chain, nothing more.  Last, it
+builds and runs `csrc/sched_probe.cu`, which shows which warps of a block
+share a scheduler.  One JSON line per measurement, the card's name and power
+limit on each.
 
-This is how the two kernels' layouts were found (PERF.md has the figures);
-run it again when either kernel, or the card, changes.
+This is how the kernels' layouts were found (PERF.md has the figures); run
+it again when a kernel, or the card, changes.
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
+import sys
 
 import torch
 
 from xritdemod_tpu_torch import _build
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator
-from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda
+from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, stream_cuda
 from xritdemod_tpu_torch.utils.cplx import CF32
 
-__all__ = ["VARIANTS", "main"]
+__all__ = ["VARIANTS", "LIBRARY", "main"]
 
 CHANNELS, BLOCK_LEN = 2048, 1 << 17
 
@@ -62,7 +67,35 @@ VARIANTS = {
             (("                    sts_f32<0>(out, p0r);\n"
               "                    sts_f32<OUT_PLANE>(out, p0i);\n", ""),),
     },
+    "agc_block": {
+        "as shipped": (),
+        "32 channels per block, 64-sample tiles (the same shared memory)":
+            (("#define CPB 16", "#define CPB 32"), ("#define TS 128 ", "#define TS 64 ")),
+        "5 tile stages": (("#define NS 6 ", "#define NS 5 "),),
+        "7 tile stages": (("#define NS 6 ", "#define NS 7 "),),
+        "64-sample tiles": (("#define TS 128 ", "#define TS 64 "),),
+        "chain holds 2 samples in registers": (("#define CHAIN 4 ", "#define CHAIN 2 "),),
+        "chain holds 8 samples in registers": (("#define CHAIN 4 ", "#define CHAIN 8 "),),
+        "1 magnitude warp": (("#define MAG_WARPS 3", "#define MAG_WARPS 1"),),
+        "2 magnitude warps": (("#define MAG_WARPS 3", "#define MAG_WARPS 2"),),
+        "max-gain clamp tested in the chain's loop":
+            (("        if constexpr (CLAMP) __builtin_assume(max_gain > 0.0f);\n", ""),),
+    },
+    "costas_block": {
+        "as shipped": (),
+        "32 channels per block, 64-sample tiles (the same shared memory)":
+            (("#define CPB 16", "#define CPB 32"), ("#define TS 128 ", "#define TS 64 ")),
+        "5 tile stages": (("#define NS 6 ", "#define NS 5 "),),
+        "7 tile stages": (("#define NS 6 ", "#define NS 7 "),),
+        "64-sample tiles": (("#define TS 128 ", "#define TS 64 "),),
+        "chain holds 2 samples in registers": (("#define CHAIN 4 ", "#define CHAIN 2 "),),
+        "chain holds 8 samples in registers": (("#define CHAIN 4 ", "#define CHAIN 8 "),),
+    },
 }
+
+# The library (`csrc/<name>.cu`) that holds each kernel.
+LIBRARY = {"frontend": "frontend", "clock": "clock", "agc_block": "stream",
+           "costas_block": "stream"}
 
 
 def _time_ms(fn, reps: int = 3) -> float:
@@ -96,11 +129,18 @@ def main() -> None:
     y = front()[0]
     clock = lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(
         y, st.clock, demod._clock, demod.num_slots)
-    for kernel, launch in (("frontend", front), ("clock", clock)):
+    xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())      # (C, T)
+    launches = dict(
+        frontend=front, clock=clock,
+        agc_block=lambda: stream_cuda.agc_block_kernel(xc, st.agc_gain, demod._agc),
+        costas_block=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas),
+    )
+    for kernel in sys.argv[1:] or list(VARIANTS):
+        library = LIBRARY[kernel]
         for i, (what, edits) in enumerate(VARIANTS[kernel].items()):
-            lib = _build.build_variant(kernel, f"{kernel}_{i}", edits=edits)
-            with _build.using(kernel, lib):
-                ms = _time_ms(launch)
+            lib = _build.build_variant(library, f"{kernel}_{i}", edits=edits)
+            with _build.using(library, lib):
+                ms = _time_ms(launches[kernel])
             print(json.dumps(dict(kernel=kernel, variant=what, ms=ms, card=card,
                                   shape=[CHANNELS, BLOCK_LEN])), flush=True)
 
