@@ -31,6 +31,7 @@ flags stay at PyTorch's defaults: what needs full float32 asks for it itself.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +51,7 @@ from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, qua
 from xritdemod_tpu_torch.models.receiver import FusedReceiver
 from xritdemod_tpu_torch.ops import agc as agc_op
 from xritdemod_tpu_torch.ops import costas as costas_op
+from xritdemod_tpu_torch.ops import viterbi as viterbi_op
 from xritdemod_tpu_torch.ops import (
     clock_cuda, filters, fir, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda,
 )
@@ -425,12 +427,26 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     ms = time_ms(lambda: viterbi_cuda.decode_bits(wins), 5)
     NW = wins.shape[0]
     bms, by = bound(NW * Lw * 9.0, NW * Lw * (64 * 4 + 12.0))
+    # The windows `StreamDecoder` gives K3 (16 per frame of 770 steps: 8
+    # frames, then the one frame of a flush), bit for bit and timed.
+    split_shapes = []
+    for nw in (128, 16):
+        w_s = wins[:nw, : 2 * 770].contiguous()
+        if not torch.equal(viterbi_cuda.decode_bits(w_s), viterbi_cuda.decode_bits_plain(w_s)):
+            fail(f"viterbi at {nw} x 770 differs from its plain version")
+        split_shapes.append(dict(
+            windows=nw, steps=770, lanes=viterbi_cuda.lanes_per_window(nw),
+            ms=time_ms(lambda: viterbi_cuda.decode_bits(w_s), 20)))
     rows.append(dict(
         name="viterbi", route="cuda", source="xritdemod_tpu_torch/csrc/viterbi.cu",
         replaces="xritdemod_tpu/ops/viterbi_pallas.py:253", max_abs_err=0.0, tolerance="exact",
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-        windows=NW, steps=Lw,
+        lanes=viterbi_cuda.lanes_per_window(NW), split_shapes=split_shapes,
     ))
+    # Decisions written once and read back once, 8 B a window-step: computed,
+    # not measured, so on a line of its own.
+    say("viterbi", windows=NW, steps=Lw, lanes=viterbi_cuda.lanes_per_window(NW),
+        decision_traffic_floor_ms=2 * 8.0 * NW * Lw / PEAK_BYTES * 1e3)
     return rows
 
 
@@ -570,18 +586,51 @@ def check_ragged(rx: FusedReceiver) -> dict:
                 fail(f"ragged roll ({Cr_} x {L_}, {dt}) differs from its plain version")
     out["roll"] = 0.0
 
-    # Viterbi: odd sizes, and the window shapes `decode_block` gives (16
-    # windows per frame of 770 steps: 128 windows for 8 frames, 16 for one).
-    for nw, steps in ((7, 101), (3, K.FRAME_BITS + 32), (128, 770), (16, 770)):
-        soft = rnd(nw, 2 * steps, scale=1.0)
-        if not torch.equal(viterbi_cuda.decode_bits(soft), viterbi_cuda.decode_bits_plain(soft)):
-            fail(f"ragged viterbi ({nw} x {steps}) differs from its plain version")
-    out["viterbi"] = 0.0
-    worst = max(v["max_abs_err"] if k == "clock_outside_its_ring" else v
+    out["viterbi"] = check_ragged_viterbi(rnd)
+    worst = max(v["max_abs_err"] if k in ("clock_outside_its_ring", "viterbi") else v
                 for k, v in out.items() if k != "sincos")
     if not worst <= 1e-4:
         fail(f"ragged shapes: a kernel disagrees with its plain version: {out}")
     return out
+
+
+def check_ragged_viterbi(rnd) -> dict:
+    """K3 against its plain version, bit for bit: odd sizes at every lanes-
+    per-window instance; window counts just below and at each threshold of
+    `lanes_per_window`; the window shapes `decode_block` gives (16 windows
+    per frame of 770 steps: 128 for 8 frames, 16 for one); tie-heavy inputs
+    (all zeros, a constant, int8-quantized symbols as `quantize_symbols`
+    makes them); one `viterbi_decode_kernel` call, one window a frame."""
+    cases = []
+    for lanes in viterbi_cuda.LANES:
+        for nw, steps in ((7, 101), (33, 95), (3, K.FRAME_BITS + 32), (1, 1)):
+            cases.append((f"{nw} x {steps}", rnd(nw, 2 * steps, scale=1.0), lanes))
+    counts = {1, 2, 3, 128, 16}
+    for least, _ in viterbi_cuda._LANES_RULE:
+        counts |= {least - 1, least} if least > 0 else set()
+    for nw in sorted(counts):
+        cases.append((f"{nw} x 97", rnd(nw, 2 * 97, scale=1.0), None))
+    steps = 770
+    q = quantize_symbols(rnd(64, 2 * steps, scale=0.5)).to(torch.float32) / K.SYMBOL_SCALE
+    for name, soft in (("zeros", torch.zeros((64, 2 * steps), device=DEV)),
+                       ("constant", torch.full((64, 2 * steps), 0.25, device=DEV)),
+                       ("int8-quantized", q)):
+        for lanes in viterbi_cuda.LANES:
+            cases.append((name, soft, lanes))
+    lanes_run = set()
+    for name, soft, lanes in cases:
+        got = viterbi_cuda.decode_bits(soft, lanes=lanes)
+        lanes_run.add(lanes or viterbi_cuda.lanes_per_window(soft.shape[0]))
+        if not torch.equal(got, viterbi_cuda.decode_bits_plain(soft)):
+            fail(f"ragged viterbi ({name}, {soft.shape[0]} windows, lanes {lanes}) differs "
+                 "from its plain version")
+    frames = rnd(3, 2 * (K.FRAME_BITS + 32), scale=1.0)
+    kb, ke = viterbi_cuda.viterbi_decode_kernel(frames)
+    pb, pe = viterbi_op.viterbi_decode(frames)
+    if not (torch.equal(kb, pb) and torch.equal(ke, pe)):
+        fail("viterbi_decode_kernel differs from viterbi_decode")
+    return dict(cases=len(cases) + 1, lanes_run=sorted(lanes_run),
+                window_counts=sorted(counts), max_abs_err=0.0)
 
 
 def check_fir() -> dict:
@@ -1057,6 +1106,17 @@ class _Stepper:
         self.state = self.fn(x, self.state)[-1]
 
 
+def viterbi_frames(log: str) -> dict:
+    """`ptxas -v`'s stack frame, spill stores and spill loads (bytes) of
+    every `viterbi_kernel<LPW>` instance, by LPW."""
+    out = {}
+    for lpw, frame, stores, loads in re.findall(
+            r"Function properties for _Z14viterbi_kernelILi(\d+)EEv\S*\s+"
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log):
+        out[lpw] = [int(frame), int(stores), int(loads)]
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1070,9 +1130,13 @@ def main() -> None:
     built = _build.build_all(verbose=True, force=True)
     for name in _build.KERNELS:
         _build.load(name)
+    k3 = viterbi_frames(built["log"])
     say("build", seconds=built["seconds"], built=built["built"],
         directory=str(_build.build_dir()), ptxas=[
-            ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln])
+            ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln],
+        viterbi_instances=k3)
+    if len(k3) != len(viterbi_cuda.LANES) or any(any(v) for v in k3.values()):
+        fail(f"viterbi: every instance must build without stack frame or spill: {k3}")
 
     say("fir", card=smi, **check_fir())
 
@@ -1129,8 +1193,9 @@ def main() -> None:
             r["launches"] = roll_counts[name]
     say("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
+    extra = ("launches_split_path", "lanes", "split_shapes")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + ("launches_split_path",) if k in r} for r in rows]}), flush=True)
+        {k: r[k] for k in keys + extra if k in r} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

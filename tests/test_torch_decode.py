@@ -101,9 +101,14 @@ class TestViterbi:
     """K3: the plain version (what the CUDA kernel must equal bit for bit)
     against the JAX scan form and the Pallas kernel in interpret mode."""
 
-    def test_plain_matches_scan(self, rng):
+    @pytest.mark.parametrize("inputs", ["noisy", "int8-quantized", "constant"])
+    def test_plain_matches_scan(self, rng, inputs):
         soft = _noisy_coded(rng, 8, 1500, 0.8)
         soft[0, 100:140] = 0.0               # ties in the ACS
+        if inputs == "int8-quantized":       # as `quantize_symbols` makes them
+            soft = np.clip(soft * 0.5 * 127, -128, 127).astype(np.int8).astype(np.float32) / 127
+        elif inputs == "constant":
+            soft = np.full_like(soft, 0.25)
         bits, err = tvit.viterbi_decode(torch.from_numpy(soft))
         jb, je = jvit.viterbi_decode(jnp.asarray(soft))
         np.testing.assert_array_equal(bits.numpy(), np.asarray(jb))

@@ -1,8 +1,10 @@
-"""Probe: what sets the time of the warp-specialised kernels: the front end
-(K1), the clock (K2), the standalone AGC (K5) and Costas loop (K6).
+"""Probe: what sets the time of the hand-written kernels: the front end
+(K1), the clock (K2), the Viterbi decoder (K3), the standalone AGC (K5) and
+Costas loop (K6).
 
     python -m xritdemod_tpu_torch.tools.kernel_probe            # needs a GPU and nvcc
     python -m xritdemod_tpu_torch.tools.kernel_probe agc_block costas_block
+    python -m xritdemod_tpu_torch.tools.kernel_probe viterbi [--rounds N] [--baseline OTHER/viterbi.cu]
 
 Times the kernels named on the command line (all four by default) at the
 shipped LRIT shape (2048 channels x 131072 samples, a synthetic BPSK-like
@@ -16,12 +18,29 @@ builds and runs `csrc/sched_probe.cu`, which shows which warps of a block
 share a scheduler.  One JSON line per measurement, the card's name and power
 limit on each.
 
+K3 runs on the windows the decoder makes of 2048 frames (8192 windows of
+2312 steps, the fused step's shape) and of 8 (128 of 770, a `StreamDecoder`
+block), every variant at every lanes-per-window instance
+(`viterbi_cuda.LANES`); one variant builds the other candidate for
+the many-windows instance (LPW 4 or 8) in its slot.  Then the shipped kernel
+and that candidate sweep the window counts `CaduDecoder` gives 1 to 16384
+frames (`SWEEP_FRAMES`: 16 windows of 770 steps to 16384 of 8224): their
+times there set `viterbi_cuda._LANES_RULE`.  `--rounds N` repeats both N
+times (one build) and ends with each time's median, least and most over
+the rounds, so two instances are told apart only beyond their spread.
+`--baseline PATH` adds, at each count, the time of another Viterbi source
+with the six-argument entry of the one-warp-per-window kernel
+(`xrit_viterbi(soft, dec, bits, NW, T, stream)`, decisions `(NW, T, 2)`
+u32), for instance that file of an earlier commit.
+
 This is how the kernels' layouts were found (PERF.md has the figures); run
 it again when a kernel, or the card, changes.
 """
 
 from __future__ import annotations
 
+import ctypes
+import itertools
 import json
 import subprocess
 import sys
@@ -29,8 +48,10 @@ import sys
 import torch
 
 from xritdemod_tpu_torch import _build
+from xritdemod_tpu_torch import constants as K
+from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator
-from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, stream_cuda
+from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, stream_cuda, viterbi_cuda
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = ["VARIANTS", "LIBRARY", "main"]
@@ -93,9 +114,30 @@ VARIANTS = {
     },
 }
 
+# The many-windows instance of the shipped rule and the other candidate for
+# it, built in its slot of the entry's dispatch (LPW 4 and 8 store decisions
+# alike, so its bits are right).
+_FEW = viterbi_cuda.LANES[0]
+_ALT = 4 if _FEW == 8 else 8
+_ALT_VARIANT = f"LPW {_ALT} in the LPW {_FEW} slot"
+VARIANTS["viterbi"] = {
+    "as shipped": (),
+    _ALT_VARIANT: ((f"case {_FEW}: return launch<{_FEW}>(", f"case {_FEW}: return launch<{_ALT}>("),),
+    "traceback chunk of 16 steps": (("#define TB 32 ", "#define TB 16 "),),
+    "traceback chunk of 64 steps": (("#define TB 32 ", "#define TB 64 "),),
+    "decisions not stored (cost probe: its bits are wrong)":
+        (("                if (live) {", "                if (false) {"),
+         ("            if (lane < steps)\n", "            if (false)\n")),
+    "no traceback (cost probe: no bits written)":
+        (("for (int c = ntb - 1; c >= 0; --c)", "for (int c = ntb - 1; c >= ntb; --c)"),),
+}
+
 # The library (`csrc/<name>.cu`) that holds each kernel.
 LIBRARY = {"frontend": "frontend", "clock": "clock", "agc_block": "stream",
-           "costas_block": "stream"}
+           "costas_block": "stream", "viterbi": "viterbi"}
+
+# Frames per `CaduDecoder` call whose Viterbi windows the sweep times.
+SWEEP_FRAMES = (1, 8, 64, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
 
 def _time_ms(fn, reps: int = 3) -> float:
@@ -110,13 +152,113 @@ def _time_ms(fn, reps: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
+def decoder_windows(frames: int, dev, seed: int = 7) -> torch.Tensor:
+    """The `(NW, 2*Lw)` soft windows `CaduDecoder` hands K3 for `frames`
+    frames of random soft symbols (S from its rule, overlap 128; past 4096
+    frames the rule gives S = 1: one window a frame)."""
+    dec = CaduDecoder(DecoderConfig(mode="lrit"), device=dev)
+    n = K.CODED_FRAME_SIZE + K.LAST_FRAME_DATA_BITS   # a frame and its history
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    soft = torch.randn((frames, n), generator=gen, device=dev)
+    segs = dec._segments(frames)
+    return viterbi_cuda.segment_windows(soft, segs, 128)[0] if segs >= 2 else soft
+
+
+def _baseline(path: str):
+    """`decode(soft)` through the Viterbi source at `path` (six-argument entry)."""
+    lib = _build.build_dir() / "variants" / "viterbi_baseline.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-o", str(lib), path], check=True)
+    fn = ctypes.CDLL(str(lib)).xrit_viterbi
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def decode(soft):
+        NW, T = soft.shape[0], soft.shape[1] // 2
+        dec = torch.empty((NW, T, 2), dtype=torch.int32, device=soft.device)
+        bits = torch.empty((NW, T), dtype=torch.uint8, device=soft.device)
+        _build.check(fn(soft.data_ptr(), dec.data_ptr(), bits.data_ptr(), NW, T,
+                        torch.cuda.current_stream().cuda_stream), "baseline xrit_viterbi")
+        return bits
+    return decode
+
+
+def viterbi_probe(card: str, dev, baseline: str | None, rounds: int = 1) -> None:
+    """K3's variants at the fused step's and a stream block's windows,
+    every instance; then the
+    shipped kernel, the other many-windows candidate (and `baseline`) over
+    the decoder's window counts; `rounds` times, then the spread of each."""
+    libs = {what: _build.build_variant("viterbi", f"viterbi_{i}", edits=edits)
+            for i, (what, edits) in enumerate(VARIANTS["viterbi"].items())}
+    sweep = {frames: decoder_windows(frames, dev) for frames in SWEEP_FRAMES}
+    shapes = (decoder_windows(2048, dev), sweep[8])
+    old = _baseline(baseline) if baseline else None
+    times: dict[str, list[float]] = {}
+
+    def timed(key: str, fn, reps: int) -> float:
+        ms = _time_ms(fn, reps)
+        times.setdefault(key, []).append(ms)
+        return ms
+
+    for r in range(rounds):
+        for what, lib in libs.items():
+            with _build.using("viterbi", lib):
+                for wins, lanes in itertools.product(shapes, viterbi_cuda.LANES):
+                    shape = [wins.shape[0], wins.shape[1] // 2]
+                    ms = timed(f"{what} | LPW {lanes} | {shape}",
+                               lambda: viterbi_cuda.decode_bits(wins, lanes=lanes), 5)
+                    print(json.dumps(dict(kernel="viterbi", round=r, variant=what, lanes=lanes,
+                                          ms=ms, card=card, shape=shape)), flush=True)
+        for frames, wins in sweep.items():
+            nw, steps = wins.shape[0], wins.shape[1] // 2
+            row = dict(kernel="viterbi", round=r, sweep="as shipped", frames=frames,
+                       windows=nw, steps=steps, rule=viterbi_cuda.lanes_per_window(nw), card=card)
+            row["ms_by_lanes"] = {str(lanes): timed(
+                f"LPW {lanes} | {[nw, steps]}",
+                lambda: viterbi_cuda.decode_bits(wins, lanes=lanes), 10)
+                for lanes in viterbi_cuda.LANES}
+            want = viterbi_cuda.decode_bits(wins)
+            with _build.using("viterbi", libs[_ALT_VARIANT]):
+                row["ms_by_lanes"][str(_ALT)] = timed(
+                    f"LPW {_ALT} | {[nw, steps]}",
+                    lambda: viterbi_cuda.decode_bits(wins, lanes=_FEW), 10)
+                row[f"lpw_{_ALT}_bits_equal"] = bool(
+                    torch.equal(viterbi_cuda.decode_bits(wins, lanes=_FEW), want))
+            if old is not None:
+                row["baseline"] = baseline
+                row["baseline_ms"] = timed(f"baseline | {[nw, steps]}", lambda: old(wins), 10)
+                row["baseline_bits_equal"] = bool(torch.equal(old(wins), want))
+            print(json.dumps(row), flush=True)
+    for key, ms in times.items():
+        ms = sorted(ms)
+        print(json.dumps(dict(kernel="viterbi", spread=key, rounds=len(ms),
+                              median_ms=ms[len(ms) // 2], least_ms=ms[0], most_ms=ms[-1],
+                              card=card)), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: no CUDA device; this probe runs on a GPU only")
+    args = sys.argv[1:]
+    baseline, rounds = None, 1
+    if "--baseline" in args:
+        i = args.index("--baseline")
+        baseline = args[i + 1]
+        del args[i : i + 2]
+    if "--rounds" in args:
+        i = args.index("--rounds")
+        rounds = int(args[i + 1])
+        del args[i : i + 2]
+    kernels = args or list(VARIANTS)
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    if "viterbi" in kernels:
+        viterbi_probe(card, dev, baseline, rounds)
+        kernels = [k for k in kernels if k != "viterbi"]
+        if not kernels:
+            return
     demod = Demodulator(DemodConfig.lrit(sample_rate=1_250_000), BLOCK_LEN)
     gen = torch.Generator(device=dev).manual_seed(7)
     noise = lambda: 0.05 * torch.randn((BLOCK_LEN, CHANNELS), generator=gen, device=dev)
@@ -135,7 +277,7 @@ def main() -> None:
         agc_block=lambda: stream_cuda.agc_block_kernel(xc, st.agc_gain, demod._agc),
         costas_block=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas),
     )
-    for kernel in sys.argv[1:] or list(VARIANTS):
+    for kernel in kernels:
         library = LIBRARY[kernel]
         for i, (what, edits) in enumerate(VARIANTS[kernel].items()):
             lib = _build.build_variant(library, f"{kernel}_{i}", edits=edits)
