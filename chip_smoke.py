@@ -7,34 +7,47 @@
 
 Builds the six CUDA libraries from `xritdemod_tpu_torch/csrc/`, holds every
 kernel against its plain PyTorch version on the card at the shapes its path
-gives it (the front end and the clock over two chained blocks, each version
-carrying its own state) and at small ragged shapes (also: the clock where
-channels stand further apart than its shared-memory ring, and the Costas
-step's sine and cosine against the CUDA library's), then drives two paths at
-the shipped LRIT operating point, C = 2048 channels x 131072 samples per
-block, on synthesised captures:
+gives it (the front end and the clock, both of its interpolators, over two
+chained blocks, each version carrying its own state) and at small ragged
+shapes (also: the clock where channels stand further apart than its
+shared-memory ring, and the Costas step's sine and cosine against the CUDA
+library's), then drives the paths at the shipped LRIT operating point,
+C = 2048 channels x 131072 samples per block, on synthesised captures:
 
   - the fused receive, `FusedReceiver.step` and one block of `step_int8`;
   - the split receive, `Demodulator(frontend_kernel="split").block_batch`
     -> `quantize_symbols` -> int8 symbols -> one `StreamDecoder` per channel
-    for 16 of the channels,
+    for 16 of the channels;
+  - the fused receive again with `clock_interp="sinc"`;
 
 and checks every recovered VCDU bit for bit against what was transmitted.
-A third, short phase runs the roll probe (`tools/roll_probe.py`).  Every
-phase prints one JSON line; any failure exits non-zero.  The last line is
-`{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
+Then: the reference's frozen answers (`tests/fixtures/`: the SHA-pinned
+streams through `StreamDecoder`, the raw-IQ fixture through `process` and
+`block_batch` against the scalar chain of `tests/test_demod_kat.py`); one
+LRIT stream through the serial `Demodulator.process` -> `StreamDecoder`,
+per interpolator (its first block's kernels held against their plain
+versions at one channel); `CaduDecoder.decode_multi` at 2048 x 8 frames
+against sequential `decode_frames` (its one Viterbi launch against the plain
+decoder); and the roll probe (`tools/roll_probe.py`).
+Every phase prints one JSON line; any failure exits non-zero.  The last line
+is `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
-Imports only the port (`xritdemod_tpu_torch`), never JAX.  The global TF32
-flags stay at PyTorch's defaults: what needs full float32 asks for it itself.
+Imports only the port (`xritdemod_tpu_torch`) and, for its scalar
+transcription, `tests/test_demod_kat.py` (numpy only), never JAX.  The
+global TF32 flags stay at PyTorch's defaults: what needs full float32 asks
+for it itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,7 +59,7 @@ if not torch.cuda.is_available():
 
 from xritdemod_tpu_torch import _build, tx
 from xritdemod_tpu_torch import constants as K
-from xritdemod_tpu_torch.models.decoder import DecoderConfig, StreamDecoder
+from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig, StreamDecoder
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, quantize_symbols
 from xritdemod_tpu_torch.models.receiver import FusedReceiver
 from xritdemod_tpu_torch.ops import agc as agc_op
@@ -57,12 +70,13 @@ from xritdemod_tpu_torch.ops import (
 )
 from xritdemod_tpu_torch.ops.clock_recovery import NTAIL
 from xritdemod_tpu_torch.tools import roll_probe
-from xritdemod_tpu_torch.utils.cplx import CF32, quantize_iq_s8, to_complex
+from xritdemod_tpu_torch.utils.cplx import CF32, from_complex, quantize_iq_s8, to_complex
 
 SEED = 20240
 CHANNELS = 2048
 BLOCK_LEN = 1 << 17
 BLOCKS = 6               # `step`: one warm-up block + five steady blocks
+SINC_BLOCKS = 4          # the same with the sinc interpolator: 1 warm-up + 3 steady
 INT8_BLOCKS = 1          # then `step_int8` on the capture's next block
 PROFILE_STEPS = 3        # further blocks of the capture, for --profile
 STREAMS = 4              # distinct transmitted streams tiled over the channels
@@ -255,10 +269,18 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     cerrs0 = clock_errs(kc0, pc0, "clock, first block")
     if not max(cerrs0) <= 1e-4:
         fail(f"clock, first block, disagrees with its plain version: {cerrs0}")
+    # The sinc instance on the same input, each version from the same cold
+    # state.
+    ks0 = clock_cuda.clock_recovery_block_kernel_batch_cl(*ck0, "sinc")
+    ps0 = clock_cuda.clock_recovery_block_plain_cl(*ck0, "sinc")
+    serrs0 = clock_errs(ks0, ps0, "clock (sinc), first block")
+    if not max(serrs0) <= 1e-4:
+        fail(f"clock (sinc), first block, disagrees with its plain version: {serrs0}")
     del xT0, ck0
     k_state, p_state = k0[1:], p0[1:]
     kc_state, pc_state = kc0[2], pc0[2]
-    del k0, p0, kc0, pc0
+    ks_state, ps_state = ks0[2], ps0[2]
+    del k0, p0, kc0, pc0, ks0, ps0
 
     xT = CF32(x1.re.t().contiguous(), x1.im.t().contiguous())
     k_out = frontend_cuda.demod_frontend(xT, *k_state, *fe_params)
@@ -356,6 +378,37 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     ))
     del ps, pv, pst
 
+    # K2's sinc instance, second block: the same input, each version with
+    # the state its own first block left.  The same bytes as the mmse
+    # instance; per symbol ~190 float operations (sinf, the shared-reduction
+    # sine and cosine, eight window taps, sixteen divisions, the
+    # interpolation and the loop).
+    sk = clock_cuda.clock_recovery_block_kernel_batch_cl(
+        yT, ks_state, demod._clock, demod.num_slots, "sinc")
+    torch.cuda.synchronize()
+    sp, plain_ms = once_ms(lambda: clock_cuda.clock_recovery_block_plain_cl(
+        yT, ps_state, demod._clock, demod.num_slots, "sinc"))
+    errs = clock_errs(sk, sp, "clock (sinc), second block")
+    if not max(errs) <= 1e-4:
+        fail(f"clock (sinc), second block, disagrees with its plain version: {errs}")
+    errs = errs + serrs0
+    sargs = (yT, ks_state, demod._clock, demod.num_slots, "sinc")
+    ms = time_ms(lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*sargs), 3)
+    if PROFILE:
+        stage_clocks("clock", clock_cuda.ROLES,
+                     lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*sargs),
+                     "clock_sinc")
+    nsym_s = int(sk[1].sum())
+    bms, by = bound(4 * (2 * (T + NTAIL) * C + 2 * C * S + 30 * C), nsym_s * 190.0)
+    rows.append(dict(
+        name="clock_sinc", route="cuda", source="xritdemod_tpu_torch/csrc/clock.cu",
+        replaces="xritdemod_tpu/ops/clock_pallas.py:539",
+        form="interp_mode='sinc' (clock_pallas.py:352-372)", max_abs_err=max(errs),
+        tolerance="atol 1e-4, equal symbol counts and positions, two chained blocks", ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None, symbols=nsym_s,
+    ))
+    del sk, sp, sargs
+
     # K4a ring append: the clock's symbols onto rings with random fills; a
     # few channels are set to overflow.
     g = torch.Generator(device="cpu").manual_seed(SEED)
@@ -450,13 +503,13 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     return rows
 
 
-# (channels, samples) of the small blocks: channels fewer than a warp, one
-# more than a warp and 70; samples one less and one more than a multiple of
-# the front end's 48-sample tile and of the clock's 32-row chunk, barely more
-# than the 62-row filter history (64), and the clock's shortest block
-# (NTAIL + 9 = 41).
+# (channels, samples) of the small blocks: one channel (the serial path's
+# count), channels fewer than a warp, one more than a warp and 70; samples
+# one less and one more than a multiple of the front end's 48-sample tile
+# and of the clock's 32-row chunk, barely more than the 62-row filter
+# history (64), and the clock's shortest block (NTAIL + 9 = 41).
 RAGGED_SHAPES = ((70, 1003), (5, 64), (33, 95), (33, 97), (5, 47), (40, 49), (33, 1023),
-                 (3, 1025), (64, 41))
+                 (3, 1025), (64, 41), (1, 1023))
 
 
 def ragged_signal(T: int, C: int, rnd) -> CF32:
@@ -518,11 +571,11 @@ def check_ragged(rx: FusedReceiver) -> dict:
     g = torch.Generator(device=DEV).manual_seed(SEED + 3)
     rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
     fe_params = (demod._agc, demod._rrc_taps, demod._costas)
-    out = {"frontend": 0.0, "clock": 0.0}
+    out = {"frontend": 0.0, "clock": 0.0, "clock_sinc": 0.0}
     for C, T in RAGGED_SHAPES:
         st = demod.init_state_batch(C)
         kfe = pfe = (st.agc_gain + rnd(C).abs(), CF32(rnd(C, 62), rnd(C, 62)), st.costas)
-        kck = pck = st.clock
+        kck = pck = ksc = psc = st.clock
         S = T // 4 + 20
         for _ in range(2):
             x = ragged_signal(T, C, rnd)
@@ -534,6 +587,11 @@ def check_ragged(rx: FusedReceiver) -> dict:
             pc = clock_cuda.clock_recovery_block_plain_cl(p[0], pck, demod._clock, S)
             out["clock"] = max(out["clock"], *clock_errs(kc, pc, f"ragged clock {C} x {T}"))
             kck, pck = kc[2], pc[2]
+            kc = clock_cuda.clock_recovery_block_kernel_batch_cl(p[0], ksc, demod._clock, S, "sinc")
+            pc = clock_cuda.clock_recovery_block_plain_cl(p[0], psc, demod._clock, S, "sinc")
+            out["clock_sinc"] = max(out["clock_sinc"],
+                                    *clock_errs(kc, pc, f"ragged clock (sinc) {C} x {T}"))
+            ksc, psc = kc[2], pc[2]
     out["clock_outside_its_ring"] = check_slow_clock(demod, rnd)
     out["sincos"] = check_trig()
 
@@ -709,6 +767,7 @@ def reset_counts() -> None:
     clock_cuda.out_of_ring_symbols(DEV, reset=True)
     frontend_cuda.launches = 0
     clock_cuda.launches = 0
+    clock_cuda.launches_sinc = 0
     viterbi_cuda.launches = 0
     ring_cuda.launches_append = 0
     ring_cuda.launches_extract = 0
@@ -720,8 +779,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     return dict(
         frontend=frontend_cuda.launches, clock=clock_cuda.launches,
-        viterbi=viterbi_cuda.launches, ring_append=ring_cuda.launches_append,
-        ring_extract=ring_cuda.launches_extract,
+        clock_sinc=clock_cuda.launches_sinc, viterbi=viterbi_cuda.launches,
+        ring_append=ring_cuda.launches_append, ring_extract=ring_cuda.launches_extract,
         agc_block=stream_cuda.launches_agc, costas_block=stream_cuda.launches_costas,
         roll=roll_probe.launches,
     )
@@ -730,6 +789,7 @@ def read_counts() -> dict:
 # Which kernels each path must launch, and none of the others.
 MAIN_PATH_KERNELS = ("frontend", "clock", "viterbi", "ring_append", "ring_extract")
 SPLIT_PATH_KERNELS = ("agc_block", "costas_block", "clock", "viterbi")
+SINC_PATH_KERNELS = ("frontend", "clock_sinc", "viterbi", "ring_append", "ring_extract")
 
 
 def check_counts(path: str, counts: dict, expected: tuple) -> None:
@@ -748,9 +808,12 @@ def quantize_block(x: CF32) -> np.ndarray:
         [quantize_iq_s8(to_complex(x[c : c + step])) for c in range(0, CHANNELS, step)])
 
 
-def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
-    """BLOCKS blocks through `step`, then INT8_BLOCKS through `step_int8`,
-    every popped frame held against what was transmitted."""
+def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
+              blocks: int = BLOCKS, int8_blocks: int = INT8_BLOCKS, label: str = "main_path",
+              expected: tuple = MAIN_PATH_KERNELS):
+    """`blocks` blocks through `step`, then `int8_blocks` through
+    `step_int8`, every popped frame held against what was transmitted; the
+    path must launch the `expected` kernels and no other."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     by_counter = [
         {1000 * (s + 1) + i: v[i].tobytes() for i in range(len(v))}
@@ -764,12 +827,12 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
     wrong = cold_wrong = partial = cold_partial = 0
     wrong_detail: list[dict] = []
     overflow = False
-    steady_ms = int8_ms = 0.0
+    ms = []                                  # per block, `step` and `step_int8` alike
     vit_err, rs_fixed = [], 0
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    for b in range(BLOCKS + INT8_BLOCKS):
-        int8 = b >= BLOCKS
+    for b in range(blocks + int8_blocks):
+        int8 = b >= blocks
         x = make_block(base, delays, b, gen)
         if int8:
             x = quantize_block(x)
@@ -779,10 +842,7 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
         batch, ok, ovf, state = rx.step_int8(x, state) if int8 else rx.step(x, state)
         e.record()
         torch.cuda.synchronize()
-        if int8:
-            int8_ms += a.elapsed_time(e)
-        elif b > 0:
-            steady_ms += a.elapsed_time(e)
+        ms.append(a.elapsed_time(e))
         del x
         overflow |= bool(ovf.any())
         fok = batch.frame_ok.cpu().numpy()
@@ -835,10 +895,11 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
     out_of_ring = clock_cuda.out_of_ring_symbols(DEV)
     peak = torch.cuda.max_memory_allocated()
     locked = int(state.locked.sum())
-    step_ms = steady_ms / (BLOCKS - 1)
+    step_ms = float(np.mean(ms[1:blocks]))
     line = dict(
-        config="DemodConfig.lrit(sample_rate=1250000) + DecoderConfig(mode='lrit')",
-        channels=CHANNELS, block_len=BLOCK_LEN, blocks=BLOCKS, int8_blocks=INT8_BLOCKS,
+        config=f"DemodConfig.lrit(sample_rate=1250000, clock_interp="
+               f"'{rx._demod.config.clock_interp}') + DecoderConfig(mode='lrit')",
+        channels=CHANNELS, block_len=BLOCK_LEN, blocks=blocks, int8_blocks=int8_blocks,
         k=rx.k, ring_len=rx.ring_len, streams=STREAMS,
         noise_per_component=float(np.hypot(NOISE_STREAM, NOISE_CHANNEL)), esn0_db=esn0_db,
         frames_recovered=int(frames.sum()), frames_per_channel_min=int(frames.min()),
@@ -849,32 +910,33 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float):
         frames_with_a_failed_rs_block_during_acquisition=cold_partial,
         mean_viterbi_corrections_per_frame=vit_err, rs_symbols_corrected=rs_fixed,
         locked_channels=locked, overflow=overflow,
-        steady_blocks=BLOCKS - 1, steady_ms_per_block=step_ms,
+        steady_blocks=blocks - 1, steady_ms_per_block=step_ms, ms_per_block=ms,
         msamples_per_s=CHANNELS * BLOCK_LEN / (step_ms * 1e-3) / 1e6,
-        step_int8_ms_per_block=int8_ms / INT8_BLOCKS,
+        step_int8_ms_per_block=float(np.mean(ms[blocks:])) if int8_blocks else None,
         peak_memory_bytes=peak, launches=counts,
         clock_symbols_read_outside_the_ring=out_of_ring,
     )
-    say("main_path", **line)
+    say(label, **line)
     if wrong:
-        fail(f"{wrong} recovered VCDUs differ from what was transmitted")
+        fail(f"{label}: {wrong} recovered VCDUs differ from what was transmitted")
     if partial:
-        fail(f"{partial} frames of locked channels passed sync with a failed Reed-Solomon block")
+        fail(f"{label}: {partial} frames of locked channels passed sync with a failed "
+             "Reed-Solomon block")
     if cold_wrong + cold_partial > CHANNELS // 100:
-        fail(f"{cold_wrong} complemented and {cold_partial} partly decoded frames "
+        fail(f"{label}: {cold_wrong} complemented and {cold_partial} partly decoded frames "
              f"during acquisition, more than {CHANNELS // 100}")
     if frames.min() < 3:
-        fail(f"a channel recovered only {frames.min()} frames")
-    if int8_frames < CHANNELS // 2:
-        fail(f"step_int8 recovered only {int8_frames} frames")
+        fail(f"{label}: a channel recovered only {frames.min()} frames")
+    if int8_blocks and int8_frames < CHANNELS // 2:
+        fail(f"{label}: step_int8 recovered only {int8_frames} frames")
     if overflow:
-        fail("a ring overflowed")
+        fail(f"{label}: a ring overflowed")
     if locked != CHANNELS:
-        fail(f"only {locked} of {CHANNELS} channels locked at the end")
+        fail(f"{label}: only {locked} of {CHANNELS} channels locked at the end")
     if out_of_ring:
-        fail(f"main path: the clock kernel read {out_of_ring} symbols outside its ring")
-    check_counts("main path", counts, MAIN_PATH_KERNELS)
-    return counts, state, step_ms, delivered
+        fail(f"{label}: the clock kernel read {out_of_ring} symbols outside its ring")
+    check_counts(label.replace("_", " "), counts, expected)
+    return counts, state, ms, delivered
 
 
 
@@ -921,7 +983,7 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
     demod = Demodulator(split_cfg, BLOCK_LEN)
     state = demod.init_state_batch(CHANNELS)
     decoders = [StreamDecoder(DecoderConfig(mode="lrit")) for _ in range(STREAM_DECODERS)]
-    warm_s = decoders[0].warm_up()
+    warm_s = decoders[0].warm_jit()
     got = [[] for _ in decoders]          # per stream: (counter, whole, bytes, vcid)
     batch_sizes: dict[int, int] = {}
 
@@ -1063,8 +1125,305 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
     check_counts("split path", counts, SPLIT_PATH_KERNELS)
     return counts, demod, state, steady
 
-def profile_steps(step, base: CF32, delays, step_ms: float) -> dict:
-    """`--profile`: the capture's next blocks through `step(x)` under
+# --------------------------------------------------------------------------
+# the reference's frozen answers, the serial receive, decode_multi
+# --------------------------------------------------------------------------
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+
+
+def frozen(name: str, digest: str) -> bytes:
+    data = (FIXTURES / name).read_bytes()
+    if hashlib.sha256(data).hexdigest() != digest:
+        fail(f"tests/fixtures/{name} does not match its pinned SHA-256")
+    return data
+
+
+def kat_phase(smi: str) -> dict:
+    """The reference's independent checks on the card.  The two SHA-pinned
+    int8 streams through `StreamDecoder` (K3 at 16 windows while it
+    acquires, 128 once a frame verified): VCDUs byte-equal to the frozen
+    payloads.  The raw-IQ fixture of `tests/test_demod_kat.py` through
+    `process` (K5, K6, K2) and through `block_batch` at 4 channels, fused
+    (K1, K2) and split (K5, K6, K2), for both interpolators, against that
+    file's scalar GNU Radio transcription at its tolerances: the same symbol
+    count, atol 2e-3, hard decisions equal away from the threshold."""
+    sys.path.insert(0, str(FIXTURES.parent))
+    import test_demod_kat as kat                # numpy only at import time
+
+    meta = json.loads((FIXTURES / "meta.json").read_text())
+    out = {"streams": {}, "demod": {}}
+    reset_counts()
+    for mode in ("lrit", "hrit"):
+        m = meta[mode]
+        wire = np.frombuffer(frozen(f"{mode}_soft_int8.bin", m["soft_sha256"]), np.int8)
+        want = np.frombuffer(frozen(f"{mode}_vcdus.bin", m["vcdu_sha256"]), np.uint8).reshape(
+            m["n_vcdus"], K.VCDU_SIZE)
+        sd = StreamDecoder(DecoderConfig(mode=mode, frames_per_block=8))
+        batches = []
+        for i in range(0, wire.size, 16384):
+            batches += sd.push(wire[i : i + 16384].astype(np.float32))
+        batches += sd.flush()
+        ok = np.concatenate([b.frame_ok.cpu().numpy() for b in batches])
+        got = np.concatenate([b.vcdu.cpu().numpy() for b in batches])[ok]
+        ctr = np.concatenate([b.counter.cpu().numpy() for b in batches])[ok]
+        if got.shape != want.shape or not np.array_equal(got, want) or ctr.tolist() != list(
+                range(m["counter0"], m["counter0"] + m["n_vcdus"])):
+            fail(f"kat: the frozen {mode} stream did not decode to its frozen VCDUs")
+        out["streams"][mode] = dict(vcdus=int(ok.sum()), batches_by_size=sorted(
+            {len(b.frame_ok) for b in batches}))
+    x = kat.load_fixture()
+    block = 32768
+    for interp in ("mmse", "sinc"):
+        ref = kat.chain_cached(interp)[0].real
+        strong = np.abs(ref) > 2e-2
+        cfg = DemodConfig.lrit(sample_rate=int(kat.FS), clock_interp=interp)
+        for form in ("process", "fused", "split"):
+            if form == "process":
+                demod = Demodulator(cfg, block)
+                st = demod.init_state()
+                parts = []
+                for i in range(0, x.shape[0], block):
+                    soft, valid, st = demod.process(x[i : i + block], st)
+                    parts.append(soft[valid].cpu().numpy())
+                chans = [np.concatenate(parts)]
+            else:
+                demod = Demodulator(dataclasses.replace(cfg, frontend_kernel=form), block)
+                st = demod.init_state_batch(4)
+                parts = []
+                for i in range(0, x.shape[0], block):
+                    soft, valid, st = demod.block_batch(np.tile(x[i : i + block], (4, 1)), st)
+                    parts.append((soft.cpu().numpy(), valid.cpu().numpy()))
+                chans = [np.concatenate([s_[c][v[c]] for s_, v in parts]) for c in range(4)]
+            errs = []
+            for got in chans:
+                if got.shape != ref.shape:
+                    fail(f"kat: {form} ({interp}) gave {got.shape[0]} symbols, the scalar chain "
+                         f"{ref.shape[0]}")
+                errs.append(float(np.abs(got - ref).max()))
+                if not np.array_equal(np.sign(got[strong]), np.sign(ref[strong])):
+                    fail(f"kat: {form} ({interp}): a hard decision differs from the scalar chain")
+            if not max(errs) <= 2e-3:
+                fail(f"kat: {form} ({interp}) differs from the scalar chain by {max(errs)}")
+            out["demod"][f"{form}_{interp}"] = dict(symbols=int(ref.shape[0]),
+                                                    max_abs_err=max(errs))
+    counts = read_counts()
+    check_counts("kat phase", counts, ("frontend", "clock", "clock_sinc", "agc_block",
+                                       "costas_block", "viterbi"))
+    return dict(card=smi, tolerance="as tests/test_demod_kat.py: equal symbol counts, atol "
+                "2e-3, hard decisions equal where |soft| > 2e-2", launches=counts, **out)
+
+
+# The stream starts with the loops cold, and the first frame-length window
+# of symbols then holds no true sync word: `StreamDecoder` can lock on a
+# noise peak there (as the reference's does), commit an 8-frame batch at the
+# wrong place and resync, which costs ~9 frames.  16 blocks carry ~30 frames.
+SERIAL_BLOCKS = 16
+
+
+def check_serial_kernels(demod: Demodulator, x: np.ndarray) -> dict:
+    """The kernels `process` launches, each against its plain version at
+    the serial path's shape, one channel of 131072 samples: the stream's
+    first block from the cold state.  K5 on the block; K6 on the plain AGC's
+    output after the RRC; K2, both instances, on the plain Costas loop's
+    output, through the `(C, T)` entry that `process` calls.  Returns the
+    largest differences."""
+    st = demod.init_state_batch(1)
+    x = from_complex(x[None, :], DEV)
+    out = {}
+    ka, kg = stream_cuda.agc_block_kernel(x, st.agc_gain, demod._agc)
+    pa, pg = agc_op.agc_block(x, st.agc_gain, demod._agc)
+    out["agc_block"] = max(max_err(ka.re, pa.re), max_err(ka.im, pa.im), max_err(kg, pg))
+    y, _ = fir.fir_block(pa, demod._rrc_taps, st.rrc_hist)
+    ky, kc = stream_cuda.costas_block_kernel(y, st.costas, demod._costas)
+    py, pc = costas_op.costas_block(y, st.costas, demod._costas)
+    out["costas_block"] = max(max_err(ky.re, py.re), max_err(ky.im, py.im),
+                              max_err(kc.phase, pc.phase), max_err(kc.freq, pc.freq))
+    yT = CF32(py.re.t().contiguous(), py.im.t().contiguous())
+    for interp, name in (("mmse", "clock"), ("sinc", "clock_sinc")):
+        k = clock_cuda.clock_recovery_block_kernel_batch(
+            py, st.clock, demod._clock, demod.num_slots, interp)
+        p = clock_cuda.clock_recovery_block_plain_cl(
+            yT, st.clock, demod._clock, demod.num_slots, interp)
+        out[name] = max(clock_errs(k, p, f"serial {name}"))
+    if not max(out.values()) <= 1e-4:
+        fail(f"serial path: a kernel disagrees with its plain version at (1, {x.re.shape[1]}): "
+             f"{out}")
+    return out
+
+
+def serial_path(smi: str) -> None:
+    """One LRIT stream as `DemodulatorApp` runs it: `Demodulator.process` on
+    blocks of 131072 samples, `snr_estimate` beside it, `quantize_symbols`,
+    one `StreamDecoder`; once per interpolator.  Every delivered VCDU must be
+    one that was sent (the stream's first frame may be its complement,
+    ROADMAP §C), at least 10 frames each.  The line reports each block's
+    time (synchronised, `process` alone) and SNR estimate, and the
+    decoder's statistics."""
+    cfg = DemodConfig.lrit(sample_rate=1_250_000)
+    n = SERIAL_BLOCKS * BLOCK_LEN
+    v = tx.make_vcdus(int(n / cfg.sps / K.CODED_FRAME_SIZE) + 2, scid=13, vcid=7,
+                      counter0=500, rng=np.random.default_rng(SEED + 40))
+    sym = tx.encode_stream(v, lrit=True, rng=np.random.default_rng(SEED + 41))
+    iq = tx.modulate(sym, cfg, np.random.default_rng(SEED + 42), freq_offset=1.5e-4,
+                     phase=1.1, amp=0.3, noise=0.05)[:n]
+    sent = {x.tobytes() for x in v}
+    checked = check_serial_kernels(Demodulator(cfg, BLOCK_LEN), iq[:BLOCK_LEN])
+    out = {}
+    for interp in ("mmse", "sinc"):
+        demod = Demodulator(dataclasses.replace(cfg, clock_interp=interp), BLOCK_LEN)
+        sd = StreamDecoder(DecoderConfig(mode="lrit"))
+        sd.warm_jit()
+        st = demod.init_state()
+        demod.process(iq[:BLOCK_LEN], st)                    # builds and warms the kernels
+        torch.cuda.synchronize()
+        reset_counts()
+        ms, snr, got = [], [], []
+        for b in range(SERIAL_BLOCKS):
+            x = iq[b * BLOCK_LEN : (b + 1) * BLOCK_LEN]
+            snr.append(float(demod.snr_estimate(x, st)))
+            (soft, valid, st), t = once_ms(lambda: demod.process(x, st))
+            ms.append(t)
+            q = quantize_symbols(soft[valid]).cpu().numpy()
+            for bt in sd.push(q):
+                got += [bt.vcdu[i].cpu().numpy().tobytes()
+                        for i in np.nonzero(bt.frame_ok.cpu().numpy())[0]]
+        for bt in sd.flush():
+            got += [bt.vcdu[i].cpu().numpy().tobytes()
+                    for i in np.nonzero(bt.frame_ok.cpu().numpy())[0]]
+        counts = read_counts()
+        wrong = [k for k, g in enumerate(got) if g not in sent]
+        first_complement = wrong == [0] and bytes(255 - c for c in got[0]) in sent
+        out[interp] = dict(blocks=SERIAL_BLOCKS, ms_per_block=ms,
+                           steady_ms_per_block=float(np.mean(ms[1:])),
+                           realtime_ms_per_block=BLOCK_LEN / cfg.sample_rate * 1e3,
+                           snr_estimate_db=snr, frames=len(got), wrong_frames=len(wrong),
+                           first_frame_complemented=first_complement,
+                           decoder_stats=dataclasses.asdict(sd.stats), launches=counts)
+    line = dict(card=smi, config="DemodConfig.lrit(sample_rate=1250000) -> process -> "
+                "quantize_symbols -> StreamDecoder(DecoderConfig(mode='lrit'))",
+                block_len=BLOCK_LEN, first_block_kernels_max_abs_err=checked,
+                tolerance="atol 1e-4, equal symbol counts and positions", **out)
+    say("serial_path", **line)
+    for interp, r in out.items():
+        if r["wrong_frames"] and not r["first_frame_complemented"]:
+            fail(f"serial path ({interp}): {r['wrong_frames']} delivered VCDUs were never sent")
+        if r["frames"] - r["wrong_frames"] < 10:
+            fail(f"serial path ({interp}): only {r['frames'] - r['wrong_frames']} frames "
+                 "delivered")
+        check_counts(f"serial path ({interp})", r["launches"],
+                     ("agc_block", "costas_block", "clock" if interp == "mmse" else "clock_sinc",
+                      "viterbi"))
+
+
+def decode_multi_phase(vcdus, smi: str) -> dict:
+    """`CaduDecoder.decode_multi` at (B, F) = (2048, 8), 16384 frames in one
+    call (one K3 launch of 16384 windows), against 8 sequential
+    `decode_frames` calls chained by their tails, field for field, with
+    `forensics=True`; and the time of both with the shipped config.  The
+    comparison decodes every frame as one Viterbi window
+    (`viterbi_segments=0`): with the shipped config the sequential calls
+    (2048 frames) take 4 overlapped windows a frame, a different decoder
+    that agrees with the exact one only as far as the signal allows.
+    The one K3 launch of `decode_multi` (16384 windows of 8224 steps, LPW 4)
+    is held against the plain Viterbi decoder on the windows it was given,
+    bit for bit."""
+    B, F = CHANNELS, 8
+    base = []
+    for s in range(STREAMS):
+        sym = tx.encode_stream(vcdus[s][:F], lrit=True, noise=0.0,
+                               rng=np.random.default_rng(SEED + 50 + s))
+        base.append(sym[: F * K.CODED_FRAME_SIZE].reshape(F, K.CODED_FRAME_SIZE))
+    base = torch.from_numpy(np.stack(base)).to(DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 51)
+    frames = base.repeat(B // STREAMS, 1, 1)
+    frames = frames * torch.where(torch.arange(B, device=DEV) % 3 == 1, -1.0, 1.0)[:, None, None]
+    frames += 0.5 * torch.randn(frames.shape, generator=gen, device=DEV)
+    tails = torch.zeros((B, 64), device=DEV)
+    out = {}
+    dec = CaduDecoder(DecoderConfig(mode="lrit", forensics=True, viterbi_segments=0))
+    seen = []
+    launch = viterbi_cuda.decode_bits
+
+    def spy(soft, lanes=None):
+        bits = launch(soft, lanes)
+        seen.append((soft, bits))
+        return bits
+
+    reset_counts()
+    viterbi_cuda.decode_bits = spy
+    try:
+        mb, mt = dec.decode_multi(frames, tails)
+    finally:
+        viterbi_cuda.decode_bits = launch
+    counts = read_counts()
+    if len(seen) != 1:
+        fail(f"decode_multi called the Viterbi kernel {len(seen)} times, not once")
+    wins, kbits = seen[0]
+    pbits, vit_plain_ms = once_ms(lambda: viterbi_cuda.decode_bits_plain(wins))
+    nbad = int((kbits != pbits).sum())
+    if nbad:
+        fail(f"decode_multi: its Viterbi launch differs from the plain decoder in {nbad} bits")
+    out["viterbi_windows"] = [wins.shape[0], wins.shape[1] // 2]
+    out["viterbi_max_abs_err"] = 0.0
+    out["viterbi_plain_ms"] = vit_plain_ms
+    del seen, wins, kbits, pbits
+    t, seq = tails, []
+    for f in range(F):
+        b1, t = dec.decode_frames(frames[:, f], t)
+        seq.append(b1)
+    for name in mb._fields:
+        want = torch.stack([getattr(b1, name) for b1 in seq], dim=1)
+        if not torch.equal(getattr(mb, name), want):
+            fail(f"decode_multi differs from sequential decode_frames in {name}")
+    if not torch.equal(mt[:, -1], t):
+        fail("decode_multi's last tails differ from the sequential calls' carried tails")
+    ok = int(mb.frame_ok.sum())
+    if ok < B * F * 99 // 100:
+        fail(f"decode_multi: only {ok} of {B * F} frames decoded")
+    del mb, mt, seq, b1
+    plain = CaduDecoder(DecoderConfig(mode="lrit"))
+
+    def multi():
+        plain.decode_multi(frames, tails)
+
+    def sequential():
+        t = tails
+        for f in range(F):
+            t = plain.decode_frames(frames[:, f], t)[1]
+
+    out["decode_multi_ms"] = time_ms(multi, 3)
+    out["sequential_decode_frames_ms"] = time_ms(sequential, 3)
+    out["decode_multi_device_busy_ms"] = device_busy_ms(multi)
+    out["sequential_decode_frames_device_busy_ms"] = device_busy_ms(sequential)
+    check_counts("decode_multi", counts, ("viterbi",))
+    if counts["viterbi"] != 1:
+        fail(f"decode_multi launched the Viterbi kernel {counts['viterbi']} times, not once")
+    return dict(card=smi, streams=B, frames_per_stream=F, frames=B * F, frames_ok=ok,
+                viterbi_launches=counts["viterbi"],
+                viterbi_lanes=viterbi_cuda.lanes_per_window(B * F),
+                equal_to_sequential_decode_frames="every field, forensics on",
+                frames_per_s=B * F / (out["decode_multi_ms"] * 1e-3), **out,
+                timing="ms: CUDA events around whole calls, 3 calls after one warm-up (the "
+                       "calls read the device from the host); device_busy_ms: the kernels' "
+                       "time under torch.profiler, one call")
+
+
+def device_busy_ms(fn) -> float:
+    """Summed device time of the kernels of one run of `fn` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3
+
+
+def profile_steps(step, base: CF32, delays, step_ms: float,
+                  first: int = BLOCKS + INT8_BLOCKS) -> dict:
+    """`--profile`: the capture's blocks from `first` on through `step(x)` under
     torch.profiler: where a step's device time goes, by kernel name, and an
     ESTIMATE of the device's idle share of a step: device busy time under the
     profiler against the step time measured without it (`step_ms`).  The two
@@ -1074,7 +1433,7 @@ def profile_steps(step, base: CF32, delays, step_ms: float) -> dict:
 
     steps = PROFILE_STEPS
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
-    blocks = [make_block(base, delays, BLOCKS + INT8_BLOCKS + i, gen) for i in range(steps)]
+    blocks = [make_block(base, delays, first + i, gen) for i in range(steps)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1106,14 +1465,14 @@ class _Stepper:
         self.state = self.fn(x, self.state)[-1]
 
 
-def viterbi_frames(log: str) -> dict:
+def kernel_frames(log: str, mangled: str) -> dict:
     """`ptxas -v`'s stack frame, spill stores and spill loads (bytes) of
-    every `viterbi_kernel<LPW>` instance, by LPW."""
+    every instance `<N>` of the kernel template `mangled`, by N."""
     out = {}
-    for lpw, frame, stores, loads in re.findall(
-            r"Function properties for _Z14viterbi_kernelILi(\d+)EEv\S*\s+"
+    for n, frame, stores, loads in re.findall(
+            rf"Function properties for {mangled}ILi(\d+)EEv\S*\s+"
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log):
-        out[lpw] = [int(frame), int(stores), int(loads)]
+        out[n] = [int(frame), int(stores), int(loads)]
     return out
 
 
@@ -1130,13 +1489,18 @@ def main() -> None:
     built = _build.build_all(verbose=True, force=True)
     for name in _build.KERNELS:
         _build.load(name)
-    k3 = viterbi_frames(built["log"])
+    k3 = kernel_frames(built["log"], "_Z14viterbi_kernel")
+    # K2 by interpolator (0 mmse, 1 sinc).  The sinc instance's stack frame
+    # is `sinf`'s large-argument path (a never-taken branch): no spill.
+    k2 = kernel_frames(built["log"], "_Z12clock_kernel")
     say("build", seconds=built["seconds"], built=built["built"],
         directory=str(_build.build_dir()), ptxas=[
             ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln],
-        viterbi_instances=k3)
+        viterbi_instances=k3, clock_instances=k2)
     if len(k3) != len(viterbi_cuda.LANES) or any(any(v) for v in k3.values()):
         fail(f"viterbi: every instance must build without stack frame or spill: {k3}")
+    if sorted(k2) != ["0", "1"] or any(v[1] or v[2] for v in k2.values()) or k2["0"][0]:
+        fail(f"clock: both instances must build without spill, mmse without stack frame: {k2}")
 
     say("fir", card=smi, **check_fir())
 
@@ -1157,10 +1521,10 @@ def main() -> None:
              kernel_ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
         for r in rows])
 
-    counts, state, step_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db)
+    counts, state, main_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db)
     if PROFILE:
         say("profile", card=smi, path="main_path", **profile_steps(
-            _Stepper(rx.step, state), base, delays, step_ms))
+            _Stepper(rx.step, state), base, delays, float(np.mean(main_ms[1:BLOCKS]))))
     del rx, state
     torch.cuda.empty_cache()
 
@@ -1169,6 +1533,32 @@ def main() -> None:
         say("profile", card=smi, path="split_path (block_batch only)", **profile_steps(
             _Stepper(demod.block_batch, dstate), base, delays, split_ms))
     del demod, dstate
+    torch.cuda.empty_cache()
+
+    # The fused receive with the sinc interpolator: K2's other instance on
+    # the main path's shapes, under the same gate, a warm-up and 3 steady
+    # blocks.
+    rx = FusedReceiver(dataclasses.replace(cfg, clock_interp="sinc"), dcfg, channels=CHANNELS,
+                       block_len=BLOCK_LEN)
+    sinc_counts, state, sinc_ms, _ = main_path(rx, base, delays, vcdus, esn0_db,
+                                               blocks=SINC_BLOCKS, int8_blocks=0,
+                                               label="sinc_path", expected=SINC_PATH_KERNELS)
+    # The two interpolators on the same blocks of the same capture (blocks
+    # 1 .. SINC_BLOCKS - 1: channels still acquire in both).
+    same = slice(1, SINC_BLOCKS)
+    say("sinc_vs_mmse", card=smi, blocks=list(range(1, SINC_BLOCKS)),
+        mmse_ms=main_ms[same], sinc_ms=sinc_ms[same],
+        sinc_minus_mmse_ms=float(np.mean(sinc_ms[same]) - np.mean(main_ms[same])))
+    if PROFILE:
+        say("profile", card=smi, path="sinc_path", **profile_steps(
+            _Stepper(rx.step, state), base, delays, float(np.mean(sinc_ms[same])),
+            first=SINC_BLOCKS))
+    del rx, state
+    torch.cuda.empty_cache()
+
+    say("kat", **kat_phase(smi))
+    serial_path(smi)
+    say("decode_multi", **decode_multi_phase(vcdus, smi))
     torch.cuda.empty_cache()
 
     # The roll probe is a tool, not a stage of either receive path: its path
@@ -1189,11 +1579,13 @@ def main() -> None:
                 r["launches_split_path"] = split_counts[name]
         elif name in SPLIT_PATH_KERNELS:
             r["launches"] = split_counts[name]
+        elif name in SINC_PATH_KERNELS:
+            r["launches"] = sinc_counts[name]
         else:
             r["launches"] = roll_counts[name]
     say("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
-    extra = ("launches_split_path", "lanes", "split_shapes")
+    extra = ("launches_split_path", "lanes", "split_shapes", "form")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,16 @@ def make_capture(cfg, channels, frames_per_channel, lrit=True, noise=0.05):
     return np.stack([s[:n] for s in sigs]), vcdus
 
 
+def present(tb, jb=None):
+    """Names of the FrameBatch fields present in `tb` (forensics fields are
+    None without `DecoderConfig.forensics`); with `jb`, also asserts that the
+    same fields are absent from both."""
+    if jb is not None:
+        for f in tb._fields:
+            assert (getattr(tb, f) is None) == (getattr(jb, f) is None), f
+    return [f for f in tb._fields if getattr(tb, f) is not None]
+
+
 def frames_of(batch, ok=None):
     """Per channel, the `(vcid, counter, vcdu bytes)` of every good frame of a
     `(C, k)`-leading FrameBatch (numpy or tensor fields), in order."""

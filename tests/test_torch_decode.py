@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import tnp
+from _torch_port import present, tnp
 from xritdemod_tpu import constants as C
 from xritdemod_tpu import tx as jtx
 from xritdemod_tpu.models.decoder import CaduDecoder as JCaduDecoder
@@ -237,7 +237,7 @@ class TestCaduDecoder:
         jbatch, jtails = JCaduDecoder(JDecoderConfig(mode=mode)).decode_frames(
             jnp.asarray(frames), jnp.asarray(tails)
         )
-        for f in batch._fields:
+        for f in present(batch, jbatch):
             a, b = getattr(batch, f).numpy(), np.asarray(getattr(jbatch, f))
             assert a.dtype == b.dtype and a.shape == b.shape, f
             np.testing.assert_array_equal(a, b, err_msg=f)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import present
 from xritdemod_tpu.models.decoder import CaduDecoder as JCaduDecoder
 from xritdemod_tpu.models.decoder import DecoderConfig as JDecoderConfig
 from xritdemod_tpu.models.decoder import StreamDecoder as JStreamDecoder
@@ -26,7 +27,7 @@ CODED = C.CODED_FRAME_SIZE
 
 
 def _same_batch(tb, jb):
-    for f in tb._fields:
+    for f in present(tb, jb):
         a, b = getattr(tb, f).numpy(), np.asarray(getattr(jb, f))
         assert a.dtype == b.dtype and a.shape == b.shape, f
         np.testing.assert_array_equal(a, b, err_msg=f)
@@ -67,7 +68,7 @@ def test_decode_block_chains_like_decode_frames(rng):
     block, btail = dec.decode_block(soft, tail)
     one, t1 = dec.decode_frames(soft[None, :CODED], tail[None])
     two, t2 = dec.decode_frames(soft[None, CODED:], t1)
-    for f in block._fields:
+    for f in present(block):
         np.testing.assert_array_equal(
             getattr(block, f).numpy(),
             np.concatenate([getattr(one, f).numpy(), getattr(two, f).numpy()]), err_msg=f)
@@ -209,7 +210,7 @@ def test_sliding_over_noise_keeps_a_read_offset():
 
 def test_warm_up_and_default_device():
     sd = StreamDecoder(DecoderConfig(frames_per_block=2), device="cpu")
-    assert sd.warm_up() > 0.0
+    assert sd.warm_jit() > 0.0
     assert sd.buffered == 0 and dataclasses.asdict(sd.stats) == dict(
         frames=0, dropped=0, resyncs=0)
     if not torch.cuda.is_available():

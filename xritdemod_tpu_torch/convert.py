@@ -2,11 +2,13 @@
 
 The system has no trained weights: its taps and tables are derived from the
 configuration in both packages, and what a running receiver owns is its
-carried state.  These functions turn the JAX package's `DemodState`,
-`RxState`, decoder tails and a `StreamDecoder`'s host state — given as **numpy arrays** in the same nesting
+carried state.  These functions turn the JAX package's `DemodState` (channel-
+batched, or the serial path's unbatched one), `RxState`, decoder tails and a
+`StreamDecoder`'s host state — given as **numpy arrays** in the same nesting
 (NamedTuples, plain tuples in field order, or dicts keyed by field name; the
-caller does the `np.asarray`) — into the port's state on a device, and back.
-Nothing here imports JAX.
+caller does the `np.asarray`) — into the port's state on a device, and back;
+and a `DecoderConfig`'s fields into the port's `DecoderConfig`.  Nothing here
+imports JAX.
 
 Field order (both packages):
   DemodState  (dec_hist, agc_gain, rrc_hist, costas, clock)
@@ -21,6 +23,8 @@ Field order (both packages):
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -32,6 +36,7 @@ from xritdemod_tpu_torch.ops.costas import CostasState
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = [
+    "decoder_config_from",
     "demod_state_from_numpy",
     "rx_state_from_numpy",
     "stream_decoder_from_numpy",
@@ -61,7 +66,8 @@ def _cf32(obj, device) -> CF32:
 
 
 def demod_state_from_numpy(state, device="cuda") -> DemodState:
-    """Channel-batched `DemodState` (numpy leaves) -> the port's, on `device`."""
+    """`DemodState` (numpy leaves) -> the port's, on `device`, with the same
+    shapes: `(C,)`-leading for `block_batch`, unbatched for `process`."""
     costas = _field(state, "costas", 3)
     clock = _field(state, "clock", 4)
     return DemodState(
@@ -81,6 +87,14 @@ def demod_state_from_numpy(state, device="cuda") -> DemodState:
             tail=_cf32(_field(clock, "tail", 5), device),
         ),
     )
+
+
+def decoder_config_from(config) -> DecoderConfig:
+    """The port's `DecoderConfig` with the fields of `config` (the JAX
+    package's `DecoderConfig`, or a dict keyed by field name) that it shares,
+    `forensics` among them."""
+    get = (lambda n: config[n]) if isinstance(config, dict) else (lambda n: getattr(config, n))
+    return DecoderConfig(**{f.name: get(f.name) for f in dataclasses.fields(DecoderConfig)})
 
 
 def tails_from_numpy(tails, device="cuda") -> torch.Tensor:
@@ -117,7 +131,10 @@ def stream_decoder_from_numpy(state: dict, config: DecoderConfig, device="cuda")
 def to_numpy(state):
     """Any of the port's states (or a tensor) -> the same nesting as plain
     tuples of numpy arrays, in field order — what the JAX package's
-    NamedTuples can be rebuilt from positionally."""
+    NamedTuples can be rebuilt from positionally (a field that is None, as a
+    `FrameBatch`'s forensics fields without `forensics`, stays None)."""
+    if state is None:
+        return None
     if isinstance(state, torch.Tensor):
         return state.detach().cpu().numpy()
     if isinstance(state, (tuple, list)):

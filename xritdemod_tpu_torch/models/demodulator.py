@@ -1,17 +1,19 @@
 """The BPSK demodulation chain as a block-functional step, channel-batched.
 
-Counterpart of `xritdemod_tpu/models/demodulator.py` (its batch path
-`block_batch`; the single-stream `process` path, the K-slab block updates,
-the sinc interpolator and the SNR tap are not ported yet): one function
-consumes a fixed-size `(C, T)` complex block plus a small carried state and
-returns soft symbols plus the next state.
+Counterpart of `xritdemod_tpu/models/demodulator.py`: the batch path
+`block_batch`, the single-stream path `init_state` / `process` and the SNR
+tap `snr_estimate`, with either clock interpolator (the channels-last entry
+`block_batch_cl` and the K-slab block updates are not ported yet).  One
+function consumes a fixed-size `(C, T)` (or, serially, `(T,)`) complex block
+plus a small carried state and returns soft symbols plus the next state.
 
 Chain: [decimating low-pass FIR] -> AGC -> RRC FIR -> Costas loop -> M&M
 clock recovery -> Re{.} soft symbols.  On the GPU the middle three stages
 are the fused front-end kernel (`ops/frontend_cuda.py`) or, with
-`frontend_kernel="split"`, the standalone AGC and Costas kernels
-(`ops/stream_cuda.py`) around the RRC convolution (`ops/fir.py`); the clock
-is `ops/clock_cuda.py`.  A CPU state/block takes their plain versions.
+`frontend_kernel="split"` and always on the serial path, the standalone AGC
+and Costas kernels (`ops/stream_cuda.py`) around the RRC convolution
+(`ops/fir.py`); the clock is `ops/clock_cuda.py`, its mmse or sinc instance
+as `clock_interp` says.  A CPU state/block takes their plain versions.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from xritdemod_tpu_torch.ops import agc as agc_op
 from xritdemod_tpu_torch.ops import clock_recovery as cr_op
 from xritdemod_tpu_torch.ops import costas as costas_op
 from xritdemod_tpu_torch.ops import filters, fir
+from xritdemod_tpu_torch.ops.snr import snr_estimate_db
 from xritdemod_tpu_torch.ops.clock_cuda import (
     clock_recovery_block_kernel_batch,
     clock_recovery_block_kernel_batch_cl,
@@ -59,8 +62,9 @@ class DemodConfig:
     clock_alpha: float = C.CLOCK_ALPHA
     clock_mu: float = C.CLOCK_MU
     clock_omega_limit: float = C.CLOCK_OMEGA_LIMIT
-    # Fractional interpolator of the M&M clock: only the tabulated 8-tap
-    # MMSE interpolator ("mmse", the shared default) is ported.
+    # Fractional interpolator of the M&M clock: the tabulated 8-tap MMSE
+    # interpolator ("mmse", the shared default) or windowed-sinc taps at the
+    # exact mu ("sinc").
     clock_interp: str = "mmse"
     # Front end of the batch path: "fused" runs AGC + RRC + Costas as the one
     # channels-last front-end kernel; "split" runs them as three `(C, T)`
@@ -116,9 +120,9 @@ class Demodulator:
     def __init__(self, config: DemodConfig, block_len: int = 1 << 17, device="cuda"):
         if block_len % config.decimation:
             raise ValueError("block_len must be a multiple of decimation")
-        if config.clock_interp != "mmse":
+        if config.clock_interp not in cr_op.INTERPS:
             raise ValueError(
-                f"clock_interp must be 'mmse' in this port, got {config.clock_interp!r}"
+                f"clock_interp must be 'sinc' or 'mmse', got {config.clock_interp!r}"
             )
         if config.frontend_kernel not in ("auto", "fused", "split"):
             raise ValueError(
@@ -162,8 +166,19 @@ class Demodulator:
             omega_relative_limit=config.clock_omega_limit,
         )
         self.num_slots = cr_op.max_symbols(block_len // config.decimation, self._clock)
+        self._hpf_taps = t(
+            filters.highpass_taps(
+                1.0, config.circuit_sample_rate, float(config.symbol_rate), 300e3
+            )
+        )
 
     # -- state ------------------------------------------------------------
+    def init_state(self) -> DemodState:
+        """The serial path's state: the reference's unbatched shapes (scalar
+        gain, mu, omega, ii, phase and freq; `(N-1,)` histories; `(3,)` clock
+        histories; `(NTAIL,)` tail)."""
+        return _map_state(lambda a: a[0], self.init_state_batch(1))
+
     def init_state_batch(self, channels: int) -> DemodState:
         dev = self.device
         return DemodState(
@@ -184,23 +199,9 @@ class Demodulator:
         cfg = self.config
         if not isinstance(x, CF32):
             x = from_complex(x, self.device)
-        if cfg.decimation > 1:
-            x, dec_hist = fir.fir_block(x, self._dec_taps, state.dec_hist, cfg.decimation)
-        else:
-            dec_hist = state.dec_hist
-        expect = self.block_len // cfg.decimation
-        if x.re.shape[-1] != expect:
-            raise ValueError(
-                f"block_batch got {x.re.shape[-1]} post-decimation samples; this "
-                f"Demodulator was built for block_len={self.block_len} (-> {expect})"
-            )
+        x, dec_hist = self._decimate(x, state, "block_batch")
         if cfg.frontend_kernel == "split":
-            x, agc_gain = agc_block_kernel(x, state.agc_gain, self._agc)
-            x, rrc_hist = fir.fir_block(x, self._rrc_taps, state.rrc_hist)
-            x, costas_state = costas_block_kernel(x, state.costas, self._costas)
-            syms, valid, clock_state = clock_recovery_block_kernel_batch(
-                x, state.clock, self._clock, self.num_slots
-            )
+            syms, valid, agc_gain, rrc_hist, costas_state, clock_state = self._split(x, state)
         else:
             # Channels-last from here on: the layout of both kernels.
             xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
@@ -209,7 +210,7 @@ class Demodulator:
                 self._agc, self._rrc_taps, self._costas,
             )
             syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
-                yT, state.clock, self._clock, self.num_slots
+                yT, state.clock, self._clock, self.num_slots, cfg.clock_interp
             )
         soft = syms.re   # the reference takes Re{.}
         return soft, valid, DemodState(
@@ -219,6 +220,78 @@ class Demodulator:
             costas=costas_state,
             clock=clock_state,
         )
+
+    def _decimate(self, x: CF32, state: DemodState, what: str):
+        """The decimating FIR (when there is one) and the block length check."""
+        cfg = self.config
+        if cfg.decimation > 1:
+            x, dec_hist = fir.fir_block(x, self._dec_taps, state.dec_hist, cfg.decimation)
+        else:
+            dec_hist = state.dec_hist
+        expect = self.block_len // cfg.decimation
+        if x.re.shape[-1] != expect:
+            raise ValueError(
+                f"{what} got {x.re.shape[-1]} post-decimation samples; this "
+                f"Demodulator was built for block_len={self.block_len} (-> {expect})"
+            )
+        return x, dec_hist
+
+    def _split(self, x: CF32, state: DemodState):
+        """The split front end and the `(C, T)` clock on a decimated block."""
+        x, agc_gain = agc_block_kernel(x, state.agc_gain, self._agc)
+        x, rrc_hist = fir.fir_block(x, self._rrc_taps, state.rrc_hist)
+        x, costas_state = costas_block_kernel(x, state.costas, self._costas)
+        syms, valid, clock_state = clock_recovery_block_kernel_batch(
+            x, state.clock, self._clock, self.num_slots, self.config.clock_interp
+        )
+        return syms, valid, agc_gain, rrc_hist, costas_state, clock_state
+
+    # -- the serial path ------------------------------------------------------
+    @torch.no_grad()
+    def process(self, x, state: DemodState):
+        """One block of one stream: `(T,)` (CF32 or complex numpy) with the
+        state of `init_state` -> (soft `(num_slots,)`, valid `(num_slots,)`,
+        next state).
+
+        The split path's stages on one channel: decimating FIR, the
+        standalone AGC (K5), the RRC convolution, the standalone Costas loop
+        (K6) and the `(C, T)` clock entry (K2, the instance of
+        `clock_interp`).  Its AGC is the exact per-sample recursion, as
+        everywhere in this port, where the reference's `_block` runs the
+        associative-scan AGC: the two agree to ~1e-6 relative, and the soft
+        symbols to a few 1e-6 (`tests/test_torch_serial.py` holds them at
+        5e-4; the KAT holds both against the scalar chain at 2e-3)."""
+        if not isinstance(x, CF32):
+            x = from_complex(x, self.device)
+        x = CF32(x.re[None, :], x.im[None, :])
+        batched = _map_state(lambda a: a[None], state)
+        x, dec_hist = self._decimate(x, batched, "process")
+        syms, valid, agc_gain, rrc_hist, costas_state, clock_state = self._split(x, batched)
+        new = DemodState(dec_hist, agc_gain, rrc_hist, costas_state, clock_state)
+        return syms.re[0], valid[0], _map_state(lambda a: a[0], new)
+
+    @torch.no_grad()
+    def snr_estimate(self, x, state: DemodState) -> torch.Tensor:
+        """RMS-ratio SNR estimate in dB of a raw `(..., T)` input block
+        (`ops/snr.py`): decimated with the carried history and put through
+        the AGC from the carried gain (the standalone AGC on the card), as a
+        tap beside the chain; `state` is not advanced."""
+        if not isinstance(x, CF32):
+            x = from_complex(x, self.device)
+        if self.config.decimation > 1:
+            x, _ = fir.fir_block(x, self._dec_taps, state.dec_hist, self.config.decimation)
+        lead, T = x.re.shape[:-1], x.re.shape[-1]
+        flat = CF32(x.re.reshape(-1, T), x.im.reshape(-1, T))
+        y, _ = agc_block_kernel(flat, state.agc_gain.reshape(-1), self._agc)
+        y = CF32(y.re.reshape(lead + (T,)), y.im.reshape(lead + (T,)))
+        return snr_estimate_db(y, self._rrc_taps, self._hpf_taps)
+
+
+def _map_state(fn, state):
+    """`fn` applied to every tensor of a (nested) state."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    return type(state)(*(_map_state(fn, s) for s in state))
 
 
 def quantize_symbols(soft: torch.Tensor) -> torch.Tensor:

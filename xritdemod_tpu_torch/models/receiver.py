@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from xritdemod_tpu_torch import constants as C
-from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig, FrameBatch
+from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig, stack_batches
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, DemodState
 from xritdemod_tpu_torch.ops import correlator as corr_op
 from xritdemod_tpu_torch.ops.ring_cuda import ring_append, ring_extract
@@ -148,7 +148,7 @@ class FusedReceiver:
             )
             batches.append(batch)
             oks.append(ok)
-        stacked = FrameBatch(*(torch.stack(xs, dim=1) for xs in zip(*batches)))
+        stacked = stack_batches(batches, dim=1)
         ok = torch.stack(oks, dim=1)                       # (C, k)
         return stacked, ok, ovf, RxState(dstate, ring, fill, locked, tails)
 

@@ -1,8 +1,10 @@
-"""CUDA M&M clock recovery (mmse interpolator): wrapper for `csrc/clock.cu`.
+"""CUDA M&M clock recovery: wrapper for `csrc/clock.cu`.
 
 Replaces `xritdemod_tpu/ops/clock_pallas.py` (`_clock_pallas_core` /
 `_mm_kernel`, entries `clock_recovery_block_pallas_batch[_cl]`), exact
-per-symbol mmse form: the recursion of `ops/clock_recovery.py` over
+per-symbol forms with either interpolator (`interp` "mmse" or "sinc", one
+kernel instance each, `launches` and `launches_sinc` count them): the
+recursion of `ops/clock_recovery.py` over
 `[tail | block]` in channels-last layout, each channel indexing its own
 sample position.
 
@@ -33,8 +35,10 @@ from xritdemod_tpu_torch.ops.clock_recovery import (
     NTAIL,
     ClockRecoveryParams,
     ClockRecoveryState,
-    mmse_table,
+    check_interp,
     clock_recovery_block_batch,
+    mmse_table,
+    sinc_table,
 )
 from xritdemod_tpu_torch.utils.cplx import CF32
 
@@ -44,9 +48,11 @@ __all__ = [
     "clock_recovery_block_plain_cl",
     "out_of_ring_symbols",
     "launches",
+    "launches_sinc",
 ]
 
-launches = 0
+launches = 0          # the mmse instance
+launches_sinc = 0     # the sinc instance
 
 # The kernel's warps in order of warp index (`enum Role` of csrc/clock.cu).
 ROLES = ("chain", "loader", "store")
@@ -70,8 +76,9 @@ def out_of_ring_symbols(device, reset: bool = False) -> int:
     return n
 
 
-def _lib():
-    fn = _build.load("clock").xrit_clock
+def _lib(interp: str):
+    lib = _build.load("clock")
+    fn = lib.xrit_clock if interp == "mmse" else lib.xrit_clock_sinc
     if not fn.argtypes:
         fn.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_int] * 3
@@ -82,10 +89,11 @@ def _lib():
 
 
 @torch.no_grad()
-def clock_recovery_block_plain_cl(x: CF32, state, params, num_slots: int):
+def clock_recovery_block_plain_cl(x: CF32, state, params, num_slots: int,
+                                  interp: str = "mmse"):
     """Plain version at the kernel's channels-last contract."""
     xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-    return clock_recovery_block_batch(xc, state, params, num_slots)
+    return clock_recovery_block_batch(xc, state, params, num_slots, interp)
 
 
 @torch.no_grad()
@@ -94,13 +102,15 @@ def clock_recovery_block_kernel_batch_cl(
     state: ClockRecoveryState,
     params: ClockRecoveryParams,
     num_slots: int,
+    interp: str = "mmse",
 ):
     """Channels-last entry: `(T, C)` CF32 block (as the front end leaves it),
     `(C,)`-leading state.  Returns `(symbols (C, S) CF32, valid (C, S) bool,
     new_state)` — the contract of `clock_recovery_block_batch`."""
-    global launches
+    global launches, launches_sinc
+    check_interp(interp)
     if not x.re.is_cuda:
-        return clock_recovery_block_plain_cl(x, state, params, num_slots)
+        return clock_recovery_block_plain_cl(x, state, params, num_slots, interp)
     T, C = x.re.shape
     S = int(num_slots)
     dev = x.re.device
@@ -123,7 +133,7 @@ def clock_recovery_block_kernel_batch_cl(
     mu_o, om_o, ii_o = new(C), new(C), new(C, dt=torch.int32)
     pr_o, pi_o, cr_o, ci_o = new(C, 3), new(C, 3), new(C, 3), new(C, 3)
     ins = [
-        tr, ti, xr, xi, mmse_table(dev),
+        tr, ti, xr, xi, mmse_table(dev) if interp == "mmse" else sinc_table(dev),
         state.mu.contiguous(), state.omega.contiguous(), state.ii.contiguous(),
         state.p.re.contiguous(), state.p.im.contiguous(),
         state.c.re.contiguous(), state.c.im.contiguous(),
@@ -135,14 +145,17 @@ def clock_recovery_block_kernel_batch_cl(
     ptrs = (ctypes.c_void_p * 23)(*[t.data_ptr() for t in ins + outs])
     omega_lim = params.omega * params.omega_relative_limit
     with torch.cuda.device(dev):
-        err = _lib()(
+        err = _lib(interp)(
             ctypes.cast(ptrs, ctypes.c_void_p), T, C, S,
             f32(params.omega), f32(omega_lim),
             f32(params.gain_omega), f32(params.gain_mu),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, "xrit_clock")
-    launches += 1
+    _build.check(err, "xrit_clock" if interp == "mmse" else "xrit_clock_sinc")
+    if interp == "mmse":
+        launches += 1
+    else:
+        launches_sinc += 1
     valid = torch.arange(S, device=dev)[None, :] < nvalid[:, None]
     new_state = ClockRecoveryState(
         mu=mu_o, omega=om_o, ii=ii_o,
@@ -158,9 +171,11 @@ def clock_recovery_block_kernel_batch(
     state: ClockRecoveryState,
     params: ClockRecoveryParams,
     num_slots: int,
+    interp: str = "mmse",
 ):
     """`(C, T)` entry: drop-in for `clock_recovery_block_batch`."""
+    check_interp(interp)
     if not x.re.is_cuda:
-        return clock_recovery_block_batch(x, state, params, num_slots)
+        return clock_recovery_block_batch(x, state, params, num_slots, interp)
     xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-    return clock_recovery_block_kernel_batch_cl(xT, state, params, num_slots)
+    return clock_recovery_block_kernel_batch_cl(xT, state, params, num_slots, interp)

@@ -1,7 +1,7 @@
 """Mueller & Muller symbol-clock recovery (plain per-symbol recursion).
 
 Counterpart of `xritdemod_tpu/ops/clock_recovery.py` (GNU Radio
-`clock_recovery_mm_cc` semantics), mmse interpolator.  Per output symbol:
+`clock_recovery_mm_cc` semantics).  Per output symbol:
 
     p0 = interp(x[ii .. ii+7], mu);  c0 = slicer(p0)   # (re>0, im>0) -> {0,1}
     u  = (p0 - p2)*conj(c1) - (c0 - c2)*conj(p1)       # lag-1 / lag-2 history
@@ -9,11 +9,24 @@ Counterpart of `xritdemod_tpu/ops/clock_recovery.py` (GNU Radio
     omega += gain_omega*e;  omega = omega_mid + clip(omega - omega_mid, +-lim)
     mu += omega + gain_mu*e;  ii += floor(mu);  mu -= floor(mu)
 
-The interpolator is the tabulated 8-tap MMSE filter (`ops/interp_taps.py`):
-row `floor(mu*128 + 0.5)` clipped to [0, 128] of a 129-row table, used as
-is.  Symbols are emitted while `ii < n - 8` into fixed-capacity slots; the
-valid mask is a per-channel prefix, invalid slots are zero and leave the
-state untouched.  Block boundaries carry a fixed `NTAIL`-sample input tail.
+The interpolator is `interp`: "mmse" (the default) is the tabulated 8-tap
+MMSE filter (`ops/interp_taps.py`): row `floor(mu*128 + 0.5)` clipped to
+[0, 128] of a 129-row table, used as is.  "sinc" evaluates 8 Hamming-windowed
+sinc taps at the exact mu, `sinc(u) * (0.54 + 0.46 cos(pi u / 4))` for
+`u = k - 3 - mu`, normalised by their sum.  It is written in the
+angle-addition form of the reference's Pallas kernel: with k an integer,
+
+    sin(pi u)     = (-1)^k sin(pi mu)
+    cos(pi u / 4) = cos(pi (k-3)/4) cos(pi mu/4) + sin(pi (k-3)/4) sin(pi mu/4)
+
+so a symbol takes one `sin(pi mu)` and one sine and cosine of `pi mu / 4`,
+the per-tap window coefficients are constants (`sinc_constants`, handed to
+the kernel as they are), and the operations run in the order the CUDA kernel
+runs them.
+
+Symbols are emitted while `ii < n - 8` into fixed-capacity slots; the valid
+mask is a per-channel prefix, invalid slots are zero and leave the state
+untouched.  Block boundaries carry a fixed `NTAIL`-sample input tail.
 
 The JAX package stages dense windows because per-channel offsets serialise
 on its device; here each channel simply indexes its own `ii`.  This plain
@@ -41,6 +54,10 @@ __all__ = [
     "max_symbols",
     "NTAIL",
     "INTERP_TAPS",
+    "INTERPS",
+    "check_interp",
+    "sinc_constants",
+    "sinc_table",
 ]
 
 INTERP_TAPS = 8
@@ -69,6 +86,56 @@ def _mmse_rows(mu: torch.Tensor) -> torch.Tensor:
     tab = mmse_table(mu.device)                                       # (129, 8)
     imu = torch.clamp(torch.floor(mu * NSTEPS + 0.5).to(torch.int64), 0, NSTEPS)
     return tab[imu]
+
+
+INTERPS = ("mmse", "sinc")
+
+
+def check_interp(interp: str) -> None:
+    if interp not in INTERPS:
+        raise ValueError(f"interp must be 'mmse' or 'sinc', got {interp!r}")
+
+
+_f32 = np.float32
+PI = _f32(math.pi)
+QUARTER_PI = _f32(math.pi / 4.0)
+WIN_A, WIN_B = _f32(0.54), _f32(0.46)
+
+
+def sinc_constants() -> np.ndarray:
+    """`(2, 8)` float32: per tap k, the window coefficients `cos(pi (k-3)/4)`
+    and `sin(pi (k-3)/4)` (float64, rounded)."""
+    k = np.arange(INTERP_TAPS, dtype=np.float64)
+    return np.stack([np.cos(math.pi / 4.0 * (k - 3.0)),
+                     np.sin(math.pi / 4.0 * (k - 3.0))]).astype(np.float32)
+
+
+def sinc_table(device) -> torch.Tensor:
+    """`sinc_constants()` on `device` (kept per device)."""
+    key = ("sinc", device)
+    tab = _tables.get(key)
+    if tab is None:
+        tab = _tables[key] = torch.from_numpy(sinc_constants()).to(device)
+    return tab
+
+
+def _sinc_rows(mu: torch.Tensor) -> torch.Tensor:
+    """Normalised windowed-sinc taps for `(C,)` mu -> `(C, 8)`, in the
+    CUDA kernel's order of operations (see the module docstring)."""
+    ca, sa = sinc_table(mu.device).unbind(0)
+    k = torch.arange(INTERP_TAPS, device=mu.device)
+    s = torch.sin(mu * float(PI))[:, None]
+    q = mu * float(QUARTER_PI)
+    sq, cq = torch.sin(q)[:, None], torch.cos(q)[:, None]
+    u = (k - 3).to(torch.float32) - mu[:, None]                    # (C, 8)
+    w = float(WIN_A) + float(WIN_B) * (ca * cq + sa * sq)
+    sn = torch.where(k % 2 == 1, -s, s)                            # (-1)^k sin(pi mu)
+    one = torch.ones((), dtype=torch.float32, device=mu.device)
+    t = torch.where(u == 0.0, one, sn / (u * float(PI))) * w
+    tsum = t[:, 0]
+    for k in range(1, INTERP_TAPS):
+        tsum = tsum + t[:, k]
+    return t / tsum[:, None]
 
 
 class ClockRecoveryParams(NamedTuple):
@@ -114,13 +181,17 @@ def clock_recovery_block_batch(
     state: ClockRecoveryState,
     params: ClockRecoveryParams,
     num_slots: int,
+    interp: str = "mmse",
 ):
-    """Recover symbols from one `(C, T)` CF32 block, `(C,)`-leading state.
+    """Recover symbols from one `(C, T)` CF32 block, `(C,)`-leading state,
+    with the `interp` interpolator ("mmse" or "sinc").
 
     Returns `(symbols, valid, new_state)`: `symbols` `(C, num_slots)` CF32,
     `valid` `(C, num_slots)` bool marking real outputs (a prefix per
     channel; the count depends on the data).
     """
+    check_interp(interp)
+    taps = _mmse_rows if interp == "mmse" else _sinc_rows
     f32 = lambda v: float(np.float32(v))
     omega_mid = f32(params.omega)
     omega_lim = f32(params.omega * params.omega_relative_limit)
@@ -148,7 +219,7 @@ def clock_recovery_block_batch(
     for j in range(num_slots):
         valid = ii < limit
         idx = torch.clamp(ii, 0, limit - 1)[:, None] + koff       # (C, 8)
-        t = _mmse_rows(mu)                                         # (C, 8)
+        t = taps(mu)                                               # (C, 8)
         wr = torch.gather(xr, 1, idx) * t
         wi = torch.gather(xi, 1, idx) * t
         p0r, p0i = wr[:, 0], wi[:, 0]

@@ -1,12 +1,14 @@
 """Probe: what sets the time of the hand-written kernels: the front end
-(K1), the clock (K2), the Viterbi decoder (K3), the standalone AGC (K5) and
-Costas loop (K6).
+(K1), the clock (K2, its mmse instance `clock` and its sinc instance
+`clock_sinc`), the Viterbi decoder (K3), the standalone AGC (K5) and Costas
+loop (K6).
 
     python -m xritdemod_tpu_torch.tools.kernel_probe            # needs a GPU and nvcc
     python -m xritdemod_tpu_torch.tools.kernel_probe agc_block costas_block
+    python -m xritdemod_tpu_torch.tools.kernel_probe clock clock_sinc [--rounds N]
     python -m xritdemod_tpu_torch.tools.kernel_probe viterbi [--rounds N] [--baseline OTHER/viterbi.cu]
 
-Times the kernels named on the command line (all four by default) at the
+Times the kernels named on the command line (all by default) at the
 shipped LRIT shape (2048 channels x 131072 samples, a synthetic BPSK-like
 block) as they are, and then variants of their sources that change one
 thing each (`VARIANTS`: a stage's work taken out, a loop unrolled further or
@@ -16,7 +18,9 @@ A variant that removes work computes something else: its time says what
 that work costs beside the kernel's dependent chain, nothing more.  Last, it
 builds and runs `csrc/sched_probe.cu`, which shows which warps of a block
 share a scheduler.  One JSON line per measurement, the card's name and power
-limit on each.
+limit on each.  `--rounds N` times every variant N times, in turn and in
+reverse order every other round, and ends with each one's median, least and
+most.
 
 K3 runs on the windows the decoder makes of 2048 frames (8192 windows of
 2312 steps, the fused step's shape) and of 8 (128 of 770, a `StreamDecoder`
@@ -114,6 +118,8 @@ VARIANTS = {
     },
 }
 
+VARIANTS["clock_sinc"] = {"as shipped": ()}
+
 # The many-windows instance of the shipped rule and the other candidate for
 # it, built in its slot of the entry's dispatch (LPW 4 and 8 store decisions
 # alike, so its bits are right).
@@ -133,8 +139,8 @@ VARIANTS["viterbi"] = {
 }
 
 # The library (`csrc/<name>.cu`) that holds each kernel.
-LIBRARY = {"frontend": "frontend", "clock": "clock", "agc_block": "stream",
-           "costas_block": "stream", "viterbi": "viterbi"}
+LIBRARY = {"frontend": "frontend", "clock": "clock", "clock_sinc": "clock",
+           "agc_block": "stream", "costas_block": "stream", "viterbi": "viterbi"}
 
 # Frames per `CaduDecoder` call whose Viterbi windows the sweep times.
 SWEEP_FRAMES = (1, 8, 64, 256, 512, 1024, 2048, 4096, 8192, 16384)
@@ -183,6 +189,14 @@ def _baseline(path: str):
     return decode
 
 
+def _spread(kernel: str, times: dict, card: str) -> None:
+    for key, ms in times.items():
+        ms = sorted(ms)
+        print(json.dumps(dict(kernel=kernel, spread=key, rounds=len(ms),
+                              median_ms=ms[len(ms) // 2], least_ms=ms[0], most_ms=ms[-1],
+                              card=card)), flush=True)
+
+
 def viterbi_probe(card: str, dev, baseline: str | None, rounds: int = 1) -> None:
     """K3's variants at the fused step's and a stream block's windows,
     every instance; then the
@@ -229,11 +243,7 @@ def viterbi_probe(card: str, dev, baseline: str | None, rounds: int = 1) -> None
                 row["baseline_ms"] = timed(f"baseline | {[nw, steps]}", lambda: old(wins), 10)
                 row["baseline_bits_equal"] = bool(torch.equal(old(wins), want))
             print(json.dumps(row), flush=True)
-    for key, ms in times.items():
-        ms = sorted(ms)
-        print(json.dumps(dict(kernel="viterbi", spread=key, rounds=len(ms),
-                              median_ms=ms[len(ms) // 2], least_ms=ms[0], most_ms=ms[-1],
-                              card=card)), flush=True)
+    _spread("viterbi", times, card)
 
 
 def main() -> None:
@@ -269,22 +279,28 @@ def main() -> None:
     front = lambda: frontend_cuda.demod_frontend(
         x, st.agc_gain, st.rrc_hist, st.costas, demod._agc, demod._rrc_taps, demod._costas)
     y = front()[0]
-    clock = lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(
-        y, st.clock, demod._clock, demod.num_slots)
+    clock = lambda interp: lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(
+        y, st.clock, demod._clock, demod.num_slots, interp)
     xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())      # (C, T)
     launches = dict(
-        frontend=front, clock=clock,
+        frontend=front, clock=clock("mmse"), clock_sinc=clock("sinc"),
         agc_block=lambda: stream_cuda.agc_block_kernel(xc, st.agc_gain, demod._agc),
         costas_block=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas),
     )
     for kernel in kernels:
         library = LIBRARY[kernel]
-        for i, (what, edits) in enumerate(VARIANTS[kernel].items()):
-            lib = _build.build_variant(library, f"{kernel}_{i}", edits=edits)
-            with _build.using(library, lib):
-                ms = _time_ms(launches[kernel])
-            print(json.dumps(dict(kernel=kernel, variant=what, ms=ms, card=card,
-                                  shape=[CHANNELS, BLOCK_LEN])), flush=True)
+        libs = [(what, _build.build_variant(library, f"{kernel}_{i}", edits=edits))
+                for i, (what, edits) in enumerate(VARIANTS[kernel].items())]
+        times: dict[str, list[float]] = {}
+        for r in range(rounds):
+            for what, lib in libs if r % 2 == 0 else libs[::-1]:
+                with _build.using(library, lib):
+                    ms = _time_ms(launches[kernel])
+                times.setdefault(what, []).append(ms)
+                print(json.dumps(dict(kernel=kernel, round=r, variant=what, ms=ms, card=card,
+                                      shape=[CHANNELS, BLOCK_LEN])), flush=True)
+        if rounds > 1:
+            _spread(kernel, times, card)
 
     exe = _build.build_dir() / "variants" / "sched_probe"
     subprocess.run(
