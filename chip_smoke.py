@@ -15,6 +15,8 @@ library's), then drives the paths at the shipped LRIT operating point,
 C = 2048 channels x 131072 samples per block, on synthesised captures:
 
   - the fused receive, `FusedReceiver.step` and one block of `step_int8`;
+    one steady block also through `step_cl` as its `(T, C)` transpose,
+    from a copy of the same state, bit-equal to `step`;
   - the split receive, `Demodulator(frontend_kernel="split").block_batch`
     -> `quantize_symbols` -> int8 symbols -> one `StreamDecoder` per channel
     for 16 of the channels;
@@ -28,24 +30,42 @@ LRIT stream through the serial `Demodulator.process` -> `StreamDecoder`,
 per interpolator (its first block's kernels held against their plain
 versions at one channel); `CaduDecoder.decode_multi` at 2048 x 8 frames
 against sequential `decode_frames` (its one Viterbi launch against the plain
-decoder); and the roll probe (`tools/roll_probe.py`).
+decoder); the apps, the entry points a user starts: the two-process
+interop (`tools/interop_run.py`: `cli decode` and `cli demod` over loopback
+on 30 s of LRIT at 1.25 Msps, every frame checked on the vchannel port and
+the statistics stream parsed), `ReceiverApp` at the config loader's default
+(LRIT at 3 Msps, then the same file with `mode=hrit`; 10 s each) with its
+kernel launches counted and its kernels held against their plain versions
+on each capture's first block, and `DemodulatorApp` with `batch_pad=128`
+against its serial path in alternated runs; and the roll probe
+(`tools/roll_probe.py`).
 Every phase prints one JSON line; any failure exits non-zero.  The last line
 is `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
 Imports only the port (`xritdemod_tpu_torch`) and, for its scalar
 transcription, `tests/test_demod_kat.py` (numpy only), never JAX.  The
+processes it starts (the interop's two apps, two synthesis workers) end
+before it does.  The
 global TF32 flags stay at PyTorch's defaults: what needs full float32 asks
 for it itself.
 """
 
 from __future__ import annotations
 
+import atexit
+import concurrent.futures
 import dataclasses
 import hashlib
 import json
+import multiprocessing
+import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -69,7 +89,10 @@ from xritdemod_tpu_torch.ops import (
     clock_cuda, filters, fir, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda,
 )
 from xritdemod_tpu_torch.ops.clock_recovery import NTAIL
-from xritdemod_tpu_torch.tools import roll_probe
+from xritdemod_tpu_torch.runtime.apps import DemodulatorApp, ReceiverApp
+from xritdemod_tpu_torch.runtime.config import demod_config_from_file
+from xritdemod_tpu_torch.runtime.frontends import CFileFrontend
+from xritdemod_tpu_torch.tools import interop_run, roll_probe
 from xritdemod_tpu_torch.utils.cplx import CF32, from_complex, quantize_iq_s8, to_complex
 
 SEED = 20240
@@ -96,7 +119,14 @@ DEV = torch.device("cuda", 0)
 PROFILE = "--profile" in sys.argv[1:]
 
 
+PHASE_S: dict[str, float] = {}        # wall seconds from the previous line to each
+_LAST_LINE = [time.perf_counter()]
+
+
 def say(phase: str, **kw) -> None:
+    now = time.perf_counter()
+    PHASE_S[phase] = PHASE_S.get(phase, 0.0) + now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
@@ -808,12 +838,33 @@ def quantize_block(x: CF32) -> np.ndarray:
         [quantize_iq_s8(to_complex(x[c : c + step])) for c in range(0, CHANNELS, step)])
 
 
+def clone_state(st):
+    """A deep copy of a nested state (a step consumes its state's ring)."""
+    if isinstance(st, torch.Tensor):
+        return st.clone()
+    return type(st)(*(clone_state(getattr(st, f)) for f in st._fields))
+
+
+def same_state(a, b) -> bool:
+    """Every tensor of two nested states (or FrameBatches) bit-equal."""
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+    kids = lambda t: [getattr(t, f) for f in t._fields] if hasattr(t, "_fields") else list(t)
+    ka, kb = kids(a), kids(b)
+    return len(ka) == len(kb) and all(same_state(x, y) for x, y in zip(ka, kb))
+
+
 def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
               blocks: int = BLOCKS, int8_blocks: int = INT8_BLOCKS, label: str = "main_path",
-              expected: tuple = MAIN_PATH_KERNELS):
+              expected: tuple = MAIN_PATH_KERNELS, cl_block: int | None = None):
     """`blocks` blocks through `step`, then `int8_blocks` through
     `step_int8`, every popped frame held against what was transmitted; the
-    path must launch the `expected` kernels and no other."""
+    path must launch the `expected` kernels and no other.  With `cl_block`,
+    that block also goes through `step_cl`, as a transposed `(T, C)` copy
+    from a copy of the same state, which must give the same outputs and
+    state as `step`, bit for bit."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     by_counter = [
         {1000 * (s + 1) + i: v[i].tobytes() for i in range(len(v))}
@@ -828,6 +879,7 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
     wrong_detail: list[dict] = []
     overflow = False
     ms = []                                  # per block, `step` and `step_int8` alike
+    cl = None
     vit_err, rs_fixed = [], 0
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -837,6 +889,9 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
         if int8:
             x = quantize_block(x)
         was_locked = state.locked.cpu().numpy()
+        if b == cl_block:
+            x_cl, xT, st_cl = x, CF32(x.re.t().contiguous(), x.im.t().contiguous()), \
+                clone_state(state)
         a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         batch, ok, ovf, state = rx.step_int8(x, state) if int8 else rx.step(x, state)
@@ -844,6 +899,16 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(e))
         del x
+        if b == cl_block:
+            a.record()
+            out_cl = rx.step_cl(xT, st_cl)
+            e.record()
+            torch.cuda.synchronize()
+            cl = dict(block=b, ms=a.elapsed_time(e), step_ms=ms[-1],
+                      equal=same_state(out_cl[0], batch) and same_state(out_cl[1:3], (ok, ovf))
+                      and same_state(out_cl[3], state),
+                      frames=int(out_cl[0].frame_ok.sum()))
+            del out_cl
         overflow |= bool(ovf.any())
         fok = batch.frame_ok.cpu().numpy()
         vcid, ctr = batch.vcid.cpu().numpy(), batch.counter.cpu().numpy()
@@ -894,6 +959,14 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
     counts = read_counts()
     out_of_ring = clock_cuda.out_of_ring_symbols(DEV)
     peak = torch.cuda.max_memory_allocated()
+    if cl is not None:
+        # The demod half alone, device-bound, on the same block and state:
+        # what channels-last ingest saves (the input transposes).  After the
+        # counts: these launches only measure.
+        dm, st0 = rx._demod, st_cl.demod
+        cl["block_batch_ms"] = time_ms(lambda: dm.block_batch(x_cl, st0), 3)
+        cl["block_batch_cl_ms"] = time_ms(lambda: dm.block_batch_cl(xT, st0), 3)
+        del x_cl, xT, st_cl, st0
     locked = int(state.locked.sum())
     step_ms = float(np.mean(ms[1:blocks]))
     line = dict(
@@ -915,8 +988,11 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
         step_int8_ms_per_block=float(np.mean(ms[blocks:])) if int8_blocks else None,
         peak_memory_bytes=peak, launches=counts,
         clock_symbols_read_outside_the_ring=out_of_ring,
+        step_cl=cl,
     )
     say(label, **line)
+    if cl_block is not None and not (cl and cl["equal"]):
+        fail(f"{label}: step_cl on the transposed block {cl_block} differs from step")
     if wrong:
         fail(f"{label}: {wrong} recovered VCDUs differ from what was transmitted")
     if partial:
@@ -1221,13 +1297,15 @@ def kat_phase(smi: str) -> dict:
 SERIAL_BLOCKS = 16
 
 
-def check_serial_kernels(demod: Demodulator, x: np.ndarray) -> dict:
+@torch.inference_mode()    # no autograd bookkeeping in the plain loops' steps
+def check_serial_kernels(demod: Demodulator, x: np.ndarray, where: str = "serial path",
+                         interps=("mmse", "sinc")) -> dict:
     """The kernels `process` launches, each against its plain version at
     the serial path's shape, one channel of 131072 samples: the stream's
     first block from the cold state.  K5 on the block; K6 on the plain AGC's
-    output after the RRC; K2, both instances, on the plain Costas loop's
-    output, through the `(C, T)` entry that `process` calls.  Returns the
-    largest differences."""
+    output after the RRC; K2, each instance of `interps`, on the plain
+    Costas loop's output, through the `(C, T)` entry that `process` calls.
+    Returns the largest differences; fails `where` above 1e-4."""
     st = demod.init_state_batch(1)
     x = from_complex(x[None, :], DEV)
     out = {}
@@ -1240,14 +1318,15 @@ def check_serial_kernels(demod: Demodulator, x: np.ndarray) -> dict:
     out["costas_block"] = max(max_err(ky.re, py.re), max_err(ky.im, py.im),
                               max_err(kc.phase, pc.phase), max_err(kc.freq, pc.freq))
     yT = CF32(py.re.t().contiguous(), py.im.t().contiguous())
-    for interp, name in (("mmse", "clock"), ("sinc", "clock_sinc")):
+    for interp in interps:
+        name = "clock" if interp == "mmse" else "clock_sinc"
         k = clock_cuda.clock_recovery_block_kernel_batch(
             py, st.clock, demod._clock, demod.num_slots, interp)
         p = clock_cuda.clock_recovery_block_plain_cl(
             yT, st.clock, demod._clock, demod.num_slots, interp)
-        out[name] = max(clock_errs(k, p, f"serial {name}"))
+        out[name] = max(clock_errs(k, p, f"{where} {name}"))
     if not max(out.values()) <= 1e-4:
-        fail(f"serial path: a kernel disagrees with its plain version at (1, {x.re.shape[1]}): "
+        fail(f"{where}: a kernel disagrees with its plain version at (1, {x.re.shape[1]}): "
              f"{out}")
     return out
 
@@ -1314,6 +1393,221 @@ def serial_path(smi: str) -> None:
         check_counts(f"serial path ({interp})", r["launches"],
                      ("agc_block", "costas_block", "clock" if interp == "mmse" else "clock_sinc",
                       "viterbi"))
+
+
+# --------------------------------------------------------------------------
+# the apps: the entry points a user starts
+# --------------------------------------------------------------------------
+
+APPS_INTEROP_S = 30.0    # LRIT at 1.25 Msps through the two CLI processes
+APPS_RX_S = 10.0         # each of LRIT and HRIT at 3 Msps through ReceiverApp
+APPS_PAD_BLOCKS = 8      # DemodulatorApp blocks, batch_pad 128 against 0
+APPS_PAD = 128
+APPS_PAD_ORDER = (0, APPS_PAD, APPS_PAD, 0, 0, APPS_PAD)   # alternated, against warm-up
+APPS_KERNELS = ("agc_block", "costas_block", "clock", "viterbi")
+
+
+def free_ports(n: int) -> list[int]:
+    socks = [socket.socket() for _ in range(n)]
+    for so in socks:
+        so.bind(("127.0.0.1", 0))
+    ports = [so.getsockname()[1] for so in socks]
+    for so in socks:
+        so.close()
+    return ports
+
+
+def symbol_sink():
+    """A TCP server that keeps what one client sends: (port, thread, chunks)."""
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    chunks: list[bytes] = []
+
+    def serve():
+        conn, _ = srv.accept()
+        conn.settimeout(120)
+        with conn:
+            while d := conn.recv(1 << 16):
+                chunks.append(d)
+        srv.close()
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    return srv.getsockname()[1], t, chunks
+
+
+def rx_run(cfg: DemodConfig, mode: str, path: str, vcdus) -> dict:
+    """`ReceiverApp` on a capture file in this process, its VCDUs collected
+    from its vchannel port and checked against what was sent."""
+    p1, p2 = free_ports(2)
+    app = ReceiverApp(cfg, DecoderConfig(mode=mode), CFileFrontend(path),
+                      vchannel_port=p1, statistics_port=p2)
+    col = interop_run.Collector(p1, "vcdu", connect_s=30)
+    col.start()
+    if not col.connected.wait(30):
+        fail(f"apps rx ({mode}): no connection to the vchannel port")
+    t0 = time.perf_counter()
+    app.run()
+    wall = time.perf_counter() - t0
+    deadline = time.monotonic() + 30
+    while len(col.data) < app.decoder_app.stats.total_packets * K.VCDU_SIZE and \
+            time.monotonic() < deadline:
+        time.sleep(0.1)
+    time.sleep(0.5)
+    col.stop()
+    col.join(5)
+    want = {(6, i): v.tobytes() for i, v in enumerate(vcdus)}
+    got = interop_run.check_vcdus(col.data, want)
+    demod = app.demod_app
+    nsamples = os.path.getsize(path) // 8
+    seconds = nsamples / cfg.sample_rate
+    whole = interop_run.frames_demodulated(len(vcdus), cfg.sps, nsamples, BLOCK_LEN)
+    st = app.decoder_app.stats
+    return dict(
+        mode=mode, seconds_of_signal=seconds, frames_sent=len(vcdus),
+        frames_exact=got["exact"], frames_missing=len(got["missing"]),
+        frames_past_the_last_whole_block=len(vcdus) - whole,
+        missing_counters=[k[1] for k in got["missing"]][:16],
+        frames_wrong_payload=got["wrong"], duplicate_mismatches=got["duplicate_mismatches"],
+        blocks=demod.blocks, ms_per_block=1e3 * demod.block_seconds / demod.blocks,
+        realtime_ms_per_block=BLOCK_LEN / cfg.sample_rate * 1e3, wall_s=wall,
+        x_realtime=seconds / wall, sample_ring=demod.ring_kind,
+        stats=dict(total=st.total_packets, dropped=st.dropped_packets, lost=st.lost_packets),
+        failures=interop_run.frame_failures(got, whole),
+    )
+
+
+def pad_run(cfg: DemodConfig, path: str, pad: int) -> tuple[np.ndarray, float]:
+    """APPS_PAD_BLOCKS blocks of `DemodulatorApp` with `batch_pad=pad` into
+    a symbol sink, the constellation tap on as the default config has it
+    (`snr_estimate` on block 0): (the int8 symbols sent, ms per block)."""
+    port, t, chunks = symbol_sink()
+    app = DemodulatorApp(cfg, CFileFrontend(path), decoder_port=port, batch_pad=pad,
+                         send_constellation=True)
+    app.run(max_blocks=APPS_PAD_BLOCKS)
+    t.join(60)
+    return np.frombuffer(b"".join(chunks), np.int8), 1e3 * app.block_seconds / app.blocks
+
+
+def pad_compare(cfg: DemodConfig, path: str) -> dict:
+    """`batch_pad` 128 against 0 on the same capture: `pad_run` in the
+    order APPS_PAD_ORDER, each run's int8 symbols against the first serial
+    run's; ms per block of every run, the median and range of each side;
+    then one block of each side's `step` under torch.profiler (device busy
+    ms and its largest kernels), to say whether a gap is the device's."""
+    runs = {0: [], APPS_PAD: []}
+    ref, equal, sizes = None, True, set()
+    for pad in APPS_PAD_ORDER:
+        sym, ms = pad_run(cfg, path, pad)
+        runs[pad].append(ms)
+        sizes.add(len(sym))
+        ref = sym if ref is None else ref
+        equal = equal and np.array_equal(sym, ref)
+    x = np.fromfile(path, np.complex64, count=BLOCK_LEN)
+    device = {}
+    for pad in runs:
+        app = DemodulatorApp(cfg, CFileFrontend(path), batch_pad=pad)
+        st = app.init_state()
+        app.step(x, st)
+        busy, rows = device_kernels(lambda: app.step(x, st))
+        device[pad] = dict(busy_ms=busy, top=[dict(name=k[:60], ms=ms) for k, ms, _ in rows[:6]])
+    side = lambda pad: dict(ms_per_block=runs[pad], median_ms=float(np.median(runs[pad])),
+                            min_ms=min(runs[pad]), max_ms=max(runs[pad]),
+                            device_one_block=device[pad])
+    return dict(blocks=APPS_PAD_BLOCKS, batch_pad=APPS_PAD, order=list(APPS_PAD_ORDER),
+                symbols=sorted(sizes), equal=equal and len(sizes) == 1,
+                serial=side(0), padded=side(APPS_PAD),
+                padded_minus_serial_median_ms=float(np.median(runs[APPS_PAD])
+                                                    - np.median(runs[0])))
+
+
+def start_app_captures() -> dict:
+    """The `apps` phase's config and captures for (b) and (c): the config
+    loader's default file written into a temporary directory (removed at
+    exit), then two spawned workers synthesising 10 s of LRIT and of HRIT at
+    its 3 Msps.  Started right after the build, so that the synthesis
+    overlaps the kernel checks' plain loops and nothing competes with the
+    apps' timed runs for the host."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_apps_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    cfg_path = os.path.join(tmp, "xritdemod.cfg")
+    lrit_cfg, parser = demod_config_from_file(cfg_path)
+    defaults = dict(sample_rate=lrit_cfg.sample_rate, decimation=lrit_cfg.decimation,
+                    mode=parser.get("mode"), send_constellation=parser.get("sendConstellation"))
+    if defaults != dict(sample_rate=3_000_000, decimation=1, mode="lrit",
+                        send_constellation="true"):
+        fail(f"apps: the loader's default config is {defaults}")
+    with open(cfg_path) as f:
+        text = f.read()
+    with open(cfg_path, "w") as f:
+        f.write(text.replace("mode=lrit", "mode=hrit"))
+    hrit_cfg, _ = demod_config_from_file(cfg_path)
+    if hrit_cfg.symbol_rate != K.HRIT_SYMBOL_RATE or hrit_cfg.sample_rate != 3_000_000:
+        fail(f"apps: mode=hrit gave {hrit_cfg}")
+    cfgs = {"lrit": lrit_cfg, "hrit": hrit_cfg}
+    caps = {m: os.path.join(tmp, f"{m}.c64") for m in cfgs}
+    # Worker processes are joined at exit whatever happens in between.
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    jobs = {m: pool.submit(interop_run.synthesize, c, m == "lrit", APPS_RX_S, caps[m],
+                           SEED + 60 + i, vcid=6)
+            for i, (m, c) in enumerate(cfgs.items())}
+    return dict(cfgs=cfgs, caps=caps, jobs=jobs, pool=pool)
+
+
+def apps_phase(smi: str, prep: dict) -> dict:
+    """The entry points a user starts, on the card.
+
+    (a) The two-process interop (`tools/interop_run.py`): `cli decode` and
+        `cli demod` over loopback on 30 s of LRIT at 1.25 Msps; every frame
+        after the cold-start head bit-exact on the vchannel port, the
+        statistics stream sane, at least real time without the warm-up.
+    (b) `ReceiverApp` at the loader's own default config (a missing
+        `xritdemod.cfg` written by `demod_config_from_file`: LRIT at
+        3 Msps), 10 s of LRIT, then the same file with `mode=hrit`, 10 s of
+        HRIT; frames checked as in (a).  Its kernel launches are counted.
+    (c) `DemodulatorApp` with `batch_pad=128` against the serial path on the
+        first blocks of (b)'s LRIT capture, three runs a side in alternated
+        order: the same int8 symbols.
+    First, the kernels (b) launches (K5, K6, K2) against their plain
+    versions on each capture's first block at (b)'s config: the shapes of
+    this path, ~13k symbols a block for LRIT and ~41k for HRIT at 3 Msps.
+    `prep` is `start_app_captures()`'s."""
+    cfgs, caps = prep["cfgs"], prep["caps"]
+    sent = {m: j.result() for m, j in prep["jobs"].items()}
+    prep["pool"].shutdown()
+    t0 = time.perf_counter()
+    checked = {m: check_serial_kernels(Demodulator(dataclasses.replace(c, frontend_kernel="split"),
+                                                   BLOCK_LEN),
+                                       np.fromfile(caps[m], np.complex64, count=BLOCK_LEN),
+                                       f"apps rx ({m})", interps=(c.clock_interp,))
+               for m, c in cfgs.items()}
+    check_s = time.perf_counter() - t0
+    ports = free_ports(3)
+    interop = interop_run.main([str(APPS_INTEROP_S), "--ports", ",".join(map(str, ports)),
+                                "--timeout", "300"])
+
+    reset_counts()
+    rx = {m: rx_run(c, m, caps[m], sent[m]) for m, c in cfgs.items()}
+    counts = read_counts()
+
+    pad = pad_compare(cfgs["lrit"], caps["lrit"])
+    for path in caps.values():
+        os.unlink(path)
+    line = dict(card=smi, interop=interop, rx=rx, launches=counts, batch_pad=pad,
+                first_block_kernels_max_abs_err=checked, first_block_kernels_s=check_s,
+                tolerance="kernels: atol 1e-4, equal symbol counts and positions")
+    say("apps", **line)
+    if not interop["ok"]:
+        fail(f"apps interop: {interop['failures']}")
+    for m, r in rx.items():
+        if r["failures"]:
+            fail(f"apps rx ({m}): {r['failures']}: {r}")
+    if not pad["equal"]:
+        fail(f"apps batch_pad: the padded symbols differ from the serial path's: {pad}")
+    check_counts("apps rx path", counts, APPS_KERNELS)
+    return counts
 
 
 def decode_multi_phase(vcdus, smi: str) -> dict:
@@ -1409,16 +1703,24 @@ def decode_multi_phase(vcdus, smi: str) -> dict:
                        "time under torch.profiler, one call")
 
 
-def device_busy_ms(fn) -> float:
-    """Summed device time of the kernels of one run of `fn` (torch.profiler)."""
+def device_kernels(fn) -> tuple[float, list]:
+    """Summed device time of the kernels of one run of `fn` (torch.profiler),
+    and its rows (name, ms, calls), largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_time_total > 0 and e.device_type.name == "CUDA"),
+                  key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+def device_busy_ms(fn) -> float:
+    """Summed device time of the kernels of one run of `fn` (torch.profiler)."""
+    return device_kernels(fn)[0]
 
 
 def profile_steps(step, base: CF32, delays, step_ms: float,
@@ -1429,22 +1731,13 @@ def profile_steps(step, base: CF32, delays, step_ms: float,
     profiler against the step time measured without it (`step_ms`).  The two
     come from different runs of the step because the profiler slows the host
     many times over, so its own wall time says nothing."""
-    from torch.profiler import ProfilerActivity, profile
-
     steps = PROFILE_STEPS
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     blocks = [make_block(base, delays, first + i, gen) for i in range(steps)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for x in blocks:
-            step(x)
-        torch.cuda.synchronize()
+    busy_ms, rows = device_kernels(lambda: [step(x) for x in blocks])
     wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
     return dict(
         steps=steps, wall_ms_per_step_under_profiler=wall_ms / steps,
         step_ms_without_profiler=step_ms, device_busy_ms_per_step=busy_ms / steps,
@@ -1503,6 +1796,7 @@ def main() -> None:
         fail(f"clock: both instances must build without spill, mmse without stack frame: {k2}")
 
     say("fir", card=smi, **check_fir())
+    app_captures = start_app_captures()
 
     cfg = DemodConfig.lrit(sample_rate=1_250_000)
     dcfg = DecoderConfig(mode="lrit")
@@ -1521,7 +1815,7 @@ def main() -> None:
              kernel_ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
         for r in rows])
 
-    counts, state, main_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db)
+    counts, state, main_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db, cl_block=2)
     if PROFILE:
         say("profile", card=smi, path="main_path", **profile_steps(
             _Stepper(rx.step, state), base, delays, float(np.mean(main_ms[1:BLOCKS]))))
@@ -1558,6 +1852,8 @@ def main() -> None:
 
     say("kat", **kat_phase(smi))
     serial_path(smi)
+    torch.cuda.empty_cache()
+    apps_counts = apps_phase(smi, app_captures)
     say("decode_multi", **decode_multi_phase(vcdus, smi))
     torch.cuda.empty_cache()
 
@@ -1583,9 +1879,11 @@ def main() -> None:
             r["launches"] = sinc_counts[name]
         else:
             r["launches"] = roll_counts[name]
-    say("total", seconds=time.perf_counter() - t_start)
+        if name in APPS_KERNELS:
+            r["launches_apps"] = apps_counts[name]
+    say("total", seconds=time.perf_counter() - t_start, seconds_up_to_each_line=PHASE_S)
     print(smi, flush=True)
-    extra = ("launches_split_path", "lanes", "split_shapes", "form")
+    extra = ("launches_split_path", "launches_apps", "lanes", "split_shapes", "form")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,9 @@ Every test makes its inputs with numpy from a fixed seed and hands the same
 arrays to the JAX package and to the port, both on the CPU.
 """
 
+import socket
+import time
+
 import jax
 import numpy as np
 import torch
@@ -67,3 +70,27 @@ def frames_of(batch, ok=None):
             ]
         )
     return out
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def until(cond, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.02)
+
+
+def quiet(collectors, settle=0.3):
+    """Wait until nothing has arrived on any collector for `settle` s."""
+    last = None
+    while True:
+        cur = sum(len(c.data) for c in collectors)
+        if cur == last:
+            return
+        last = cur
+        time.sleep(settle)

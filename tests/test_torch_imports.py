@@ -31,7 +31,12 @@ bad = sorted(
     if m.split(".")[0] in ("jax", "jaxlib", "xritdemod_tpu", "triton")
     or m == "torch.utils.cpp_extension"
 )
+sdr = sorted({
+    line.split()[-1].rsplit("/", 1)[-1] for line in open("/proc/self/maps")
+    if any(k in line for k in ("rtlsdr", "airspy", "hackrf", "sdrplay", "mirsdr"))
+})
 print("MODULES", len(names))
+print("SDR", sdr)
 print("NAMES", " ".join(names))
 print("BAD", bad)
 """
@@ -50,13 +55,22 @@ def probe():
 
 def test_every_submodule_imports(probe):
     n = int(probe.split("MODULES")[1].split()[0])
-    assert n >= 30
+    assert n >= 51
+
+
+def test_importing_the_frontends_loads_no_sdr_library(probe):
+    """`runtime/frontends.py`, `usb_frontends.py` and `spyserver.py` open a
+    device library only when a frontend is started."""
+    assert "SDR []" in probe, probe
 
 
 @pytest.mark.parametrize("module", [
     "ops.stream_cuda", "ops.frontend_cuda", "ops.clock_cuda", "ops.viterbi_cuda",
     "ops.ring_cuda", "tools.roll_probe", "tools.kernel_probe", "models.decoder",
-    "models.demodulator", "convert", "ops.snr", "ops.clock_recovery",
+    "models.demodulator", "convert", "ops.snr", "ops.clock_recovery", "cli",
+    "runtime.apps", "runtime.config", "runtime.native", "runtime.checkpoint",
+    "runtime.metrics", "runtime.frontends", "runtime.usb_frontends", "runtime.spyserver",
+    "tools.interop_run",
 ])
 def test_kernel_and_entry_modules_import_without_a_gpu_toolchain(probe, module):
     """Each was imported by a process that ends with no `jax`, `jaxlib`,
@@ -183,3 +197,54 @@ def test_tx_matches():
         ttx.modulate(s[:4000], cfg, np.random.default_rng(4)),
         jtx.modulate(s[:4000], JDemodConfig.lrit(), np.random.default_rng(4)),
     )
+
+
+# The runtime modules the port copies from the JAX package, and what may
+# differ beyond docstrings, comments and the package name: a user-visible
+# title (the port runs on a GPU); the broadcast server's sending loop, which
+# the port rewrote to send all it has queued each turn (its own test is in
+# test_torch_runtime.py), dropped from both sides.
+_RUNTIME_COPIES = {
+    "statistics": {}, "channel_writer": {}, "exit_handler": {},
+    "diag": {}, "frontends": {}, "spyserver": {}, "usb_frontends": {},
+    "symbol_manager": {}, "config": {},
+    "display": {"edits": [(" xRIT TPU Decoder ", " xRIT GPU Decoder ")]},
+    "dispatchers": {"drop": {"_loop", "_take", "_send"}},
+}
+
+
+def _code_of(path, edits=(), drop=()):
+    """The module's code as an AST dump, docstrings and the methods named in
+    `drop` removed and the JAX package's name mapped to the port's."""
+    text = open(path).read()
+    for old, new in edits:
+        assert old in text, (path, old)
+        text = text.replace(old, new)
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef):
+            node.body = [b for b in node.body
+                         if not (isinstance(b, ast.FunctionDef) and b.name in drop)]
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        if isinstance(node, ast.ImportFrom) and node.module:
+            root, _, rest = node.module.partition(".")
+            if root == "xritdemod_tpu":
+                node.module = "xritdemod_tpu_torch" + ("." + rest if rest else "")
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", sorted(_RUNTIME_COPIES))
+def test_runtime_copies_match(name):
+    """Each copied runtime module is its original line for line in code (the
+    docstrings are rewritten for the port; `config` builds the port's
+    configs through the same names)."""
+    ref = os.path.join(ROOT, "xritdemod_tpu", "runtime", f"{name}.py")
+    port = os.path.join(ROOT, "xritdemod_tpu_torch", "runtime", f"{name}.py")
+    how = _RUNTIME_COPIES[name]
+    drop = how.get("drop", ())
+    assert _code_of(port, drop=drop) == _code_of(ref, how.get("edits", ()), drop)

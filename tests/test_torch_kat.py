@@ -187,14 +187,78 @@ def test_viterbi_recovers_clean_message():
 
 # -- (iv) the scalar GR transcriptions against the port's stages ---------------
 
+def _agc64(x, gr_magnitude):
+    """The AGC recursion of the fixture's parameters in float64: gains applied
+    at each sample and the gain carried out.  `gr_magnitude` measures the
+    output as GR's `agc_cc` does, `|x g|`; otherwise as the port does,
+    `|x| g` (the same value in exact arithmetic)."""
+    xr, xi = x.real.astype(np.float64), x.imag.astype(np.float64)
+    mag = np.hypot(xr, xi)
+    g, gains = float(kat.AGC_GAIN), np.empty(x.shape[0])
+    for n in range(x.shape[0]):
+        gains[n] = g
+        m = np.sqrt((xr[n] * g) ** 2 + (xi[n] * g) ** 2) if gr_magnitude else mag[n] * g
+        g = min(g + kat.AGC_RATE * (kat.AGC_REF - m), kat.AGC_MAX)
+    return gains, g
+
+
+def _agc32_bound(x, gains, final):
+    """How far a float32 run of the recursion may drift from the float64 one,
+    per output sample and for the carried gain, on any host: each step adds
+    at most 4 ulp of every term of the update (the magnitude's own rounding
+    of up to 2 ulp, the product, the difference, the step), and an error of
+    the gain is carried on multiplied by `|1 - rate |x||` (the clamp only
+    shrinks it).  An output adds 2 ulp of its own."""
+    u = 2.0 ** -24
+    mag = np.abs(x.astype(np.complex128))
+    nxt = np.append(gains[1:], final)
+    d, drift = 0.0, np.empty(x.shape[0])
+    for n in range(x.shape[0]):
+        drift[n] = d
+        step = 4 * u * (abs(nxt[n]) + kat.AGC_RATE * (mag[n] * gains[n] + kat.AGC_REF))
+        d = abs(1.0 - kat.AGC_RATE * mag[n]) * d + step
+    return mag * drift + 2 * u * mag * gains, d
+
+
 def test_agc_scalar_vs_port():
-    """Scalar `agc_cc` vs the port's exact AGC on the fixture: atol 2e-6,
-    final gain rtol 1e-5 (GR measures |x g| where the port takes |x| g)."""
+    """Scalar `agc_cc` vs the port's exact AGC on the fixture, each held to a
+    float64 recursion of its own formula (GR measures `|x g|`, the port
+    `|x| g`) within the float32 drift bound of `_agc32_bound`, outputs and
+    carried gain; and the two float64 recursions agree at rtol 1e-12.  One
+    ulp a step of a host's `sqrt` or fused multiply-add can move a float32
+    run by more than a fixed tolerance over 65536 steps, never past the
+    bound.  The port's run is also the float32 recursion written out in
+    numpy, one rounding per operation, on its own magnitudes, bit for bit
+    (whatever the host's `sqrt` gave them)."""
+    x = kat.load_fixture()
     ref, ref_gain = kat.stages_cached()[:2]
     p = agc_op.AgcParams(kat.AGC_RATE, kat.AGC_REF, kat.AGC_GAIN, kat.AGC_MAX)
-    y, g = agc_op.agc_block(_cf(kat.load_fixture()), agc_op.agc_init(p), p)
-    np.testing.assert_allclose(y.re.numpy() + 1j * y.im.numpy(), ref, atol=2e-6)
-    np.testing.assert_allclose(float(g), ref_gain, rtol=1e-5)
+    y, g = agc_op.agc_block(_cf(x), agc_op.agc_init(p), p)
+    port = y.re.numpy() + 1j * y.im.numpy()
+
+    gr_gains, gr_final = _agc64(x, gr_magnitude=True)
+    port_gains, port_final = _agc64(x, gr_magnitude=False)
+    np.testing.assert_allclose(port_gains, gr_gains, rtol=1e-12)
+    assert abs(port_final - gr_final) <= 1e-12 * gr_final
+
+    f32 = np.float32
+    mag = _cf(x).abs().numpy()
+    gain, gains32 = f32(kat.AGC_GAIN), np.empty(x.shape[0], f32)
+    for n in range(x.shape[0]):
+        gains32[n] = gain
+        gain = min(gain + f32(kat.AGC_RATE) * (f32(kat.AGC_REF) - mag[n] * gain), f32(kat.AGC_MAX))
+    np.testing.assert_array_equal(y.re.numpy(), x.real.astype(f32) * gains32)
+    np.testing.assert_array_equal(y.im.numpy(), x.imag.astype(f32) * gains32)
+    assert float(g) == float(gain)
+
+    for out, final, (gains, final64) in (
+        (ref, float(ref_gain), (gr_gains, gr_final)),
+        (port, float(g), (port_gains, port_final)),
+    ):
+        bound, gain_bound = _agc32_bound(x, gains, final64)
+        err = np.abs(out.astype(np.complex128) - x.astype(np.complex128) * gains)
+        assert (err <= bound).all(), float((err / bound).max())
+        assert abs(final - final64) <= gain_bound
 
 
 def test_costas_scalar_vs_port():

@@ -1,9 +1,9 @@
 """The BPSK demodulation chain as a block-functional step, channel-batched.
 
 Counterpart of `xritdemod_tpu/models/demodulator.py`: the batch path
-`block_batch`, the single-stream path `init_state` / `process` and the SNR
-tap `snr_estimate`, with either clock interpolator (the channels-last entry
-`block_batch_cl` and the K-slab block updates are not ported yet).  One
+`block_batch` and its channels-last entry `block_batch_cl`, the single-stream
+path `init_state` / `process` and the SNR tap `snr_estimate`, with either
+clock interpolator (the K-slab block updates are not ported).  One
 function consumes a fixed-size `(C, T)` (or, serially, `(T,)`) complex block
 plus a small carried state and returns soft symbols plus the next state.
 
@@ -200,26 +200,44 @@ class Demodulator:
         if not isinstance(x, CF32):
             x = from_complex(x, self.device)
         x, dec_hist = self._decimate(x, state, "block_batch")
-        if cfg.frontend_kernel == "split":
-            syms, valid, agc_gain, rrc_hist, costas_state, clock_state = self._split(x, state)
-        else:
+        if cfg.frontend_kernel != "split":
             # Channels-last from here on: the layout of both kernels.
-            xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-            yT, agc_gain, rrc_hist, costas_state = demod_frontend(
-                xT, state.agc_gain, state.rrc_hist, state.costas,
-                self._agc, self._rrc_taps, self._costas,
-            )
-            syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
-                yT, state.clock, self._clock, self.num_slots, cfg.clock_interp
-            )
+            return self._fused_cl(_transpose(x), dec_hist, state)
+        syms, valid, agc_gain, rrc_hist, costas_state, clock_state = self._split(x, state)
         soft = syms.re   # the reference takes Re{.}
-        return soft, valid, DemodState(
-            dec_hist=dec_hist,
-            agc_gain=agc_gain,
-            rrc_hist=rrc_hist,
-            costas=costas_state,
-            clock=clock_state,
+        return soft, valid, DemodState(dec_hist, agc_gain, rrc_hist, costas_state, clock_state)
+
+    @torch.no_grad()
+    def block_batch_cl(self, xT, state: DemodState):
+        """Channels-last ingest: a `(T, C)` block (CF32 or complex numpy,
+        time-major, the natural order of an interleaved multichannel source)
+        -> the results of `block_batch` on its transpose, bit for bit, without
+        the `(C, T) -> (T, C)` transpose in front of the fused front end.
+        The split front end and the decimating FIR work on `(C, T)`, so with
+        either the block is transposed once here, as the reference does."""
+        if not isinstance(xT, CF32):
+            xT = from_complex(xT, self.device)
+        if self.config.frontend_kernel == "split" or self.config.decimation > 1:
+            return self.block_batch(_transpose(xT), state)
+        if xT.re.shape[0] != self.block_len:
+            raise ValueError(
+                f"block_batch_cl got {xT.re.shape[0]} samples; this Demodulator "
+                f"was built for block_len={self.block_len}"
+            )
+        xT = CF32(xT.re.contiguous(), xT.im.contiguous())
+        return self._fused_cl(xT, state.dec_hist, state)
+
+    def _fused_cl(self, xT: CF32, dec_hist: CF32, state: DemodState):
+        """The fused front end and the `(T, C)` clock on a decimated
+        channels-last block."""
+        yT, agc_gain, rrc_hist, costas_state = demod_frontend(
+            xT, state.agc_gain, state.rrc_hist, state.costas,
+            self._agc, self._rrc_taps, self._costas,
         )
+        syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
+            yT, state.clock, self._clock, self.num_slots, self.config.clock_interp
+        )
+        return syms.re, valid, DemodState(dec_hist, agc_gain, rrc_hist, costas_state, clock_state)
 
     def _decimate(self, x: CF32, state: DemodState, what: str):
         """The decimating FIR (when there is one) and the block length check."""
@@ -285,6 +303,11 @@ class Demodulator:
         y, _ = agc_block_kernel(flat, state.agc_gain.reshape(-1), self._agc)
         y = CF32(y.re.reshape(lead + (T,)), y.im.reshape(lead + (T,)))
         return snr_estimate_db(y, self._rrc_taps, self._hpf_taps)
+
+
+def _transpose(x: CF32) -> CF32:
+    """`(A, B)` -> contiguous `(B, A)`."""
+    return CF32(x.re.t().contiguous(), x.im.t().contiguous())
 
 
 def _map_state(fn, state):

@@ -1,7 +1,7 @@
 """The fused receive: IQ blocks -> VCDU frames, all state on the device.
 
-Counterpart of `xritdemod_tpu/models/receiver.py` (`step` and `step_int8`;
-the channels-last `step_cl` and the bf16 ring are not ported yet).  Per
+Counterpart of `xritdemod_tpu/models/receiver.py` (`step`, the channels-last
+`step_cl` and `step_int8`; the bf16 ring is not ported).  Per
 `(C, T)` IQ block:
 
   demod chain (front-end kernel + clock kernel)
@@ -159,6 +159,14 @@ class FusedReceiver:
         if not isinstance(x, CF32):
             x = from_complex(x, self.device)
         return self._after_demod(self._demod.block_batch(x, state.demod), state)
+
+    @torch.no_grad()
+    def step_cl(self, xT, state: RxState):
+        """Channels-last variant: a `(T, C)` IQ block (time-major, the natural
+        order of an interleaved multichannel source) -> the results of `step`
+        on its transpose, bit for bit, without the device-side input
+        transpose (`Demodulator.block_batch_cl`)."""
+        return self._after_demod(self._demod.block_batch_cl(xT, state.demod), state)
 
     @torch.no_grad()
     def step_int8(self, q, state: RxState):
