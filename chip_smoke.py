@@ -11,7 +11,9 @@ gives it (the front end and the clock, both of its interpolators, over two
 chained blocks, each version carrying its own state) and at small ragged
 shapes (also: the clock where channels stand further apart than its
 shared-memory ring, and the Costas step's sine and cosine against the CUDA
-library's), then drives the paths at the shipped LRIT operating point,
+library's; the plain recurrences run as replayed CUDA graphs, `ops/scan.py`,
+themselves held bit-equal to eager loops first), then drives the paths at
+the shipped LRIT operating point,
 C = 2048 channels x 131072 samples per block, on synthesised captures:
 
   - the fused receive, `FusedReceiver.step` and one block of `step_int8`;
@@ -37,15 +39,23 @@ the statistics stream parsed), `ReceiverApp` at the config loader's default
 (LRIT at 3 Msps, then the same file with `mode=hrit`; 10 s each) with its
 kernel launches counted and its kernels held against their plain versions
 on each capture's first block, and `DemodulatorApp` with `batch_pad=128`
-against its serial path in alternated runs; and the roll probe
+against its serial path in alternated runs; the parallel layer
+(`parallel`: 60 s of LRIT at 1.25 Msps and 10 s of HRIT at 3 Msps, 100 ppm
+clock drift, s8 wire, through `tools/long_soak.py`'s `FoldedCaptureReceiver`
+at 128 folds and through `cli reprocess` as a process, every frame checked,
+the fold path's kernels held against their plain versions at C = 128;
+the channel axis, the time-block axis (its split kernels held against their
+plain versions on its rows, past 2^17 samples) and the sharded fused
+receive on a mesh of four `cuda:0` entries against their unsharded
+counterparts; two `tools/dist_worker.py` ranks over `gloo`); and the roll probe
 (`tools/roll_probe.py`).
 Every phase prints one JSON line; any failure exits non-zero.  The last line
 is `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
 Imports only the port (`xritdemod_tpu_torch`) and, for its scalar
 transcription, `tests/test_demod_kat.py` (numpy only), never JAX.  The
-processes it starts (the interop's two apps, two synthesis workers) end
-before it does.  The
+processes it starts (the interop's two apps, four synthesis workers, two
+`cli reprocess` runs, two `dist_worker` ranks) end before it does.  The
 global TF32 flags stay at PyTorch's defaults: what needs full float32 asks
 for it itself.
 """
@@ -83,17 +93,24 @@ from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig, Strea
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, quantize_symbols
 from xritdemod_tpu_torch.models.receiver import FusedReceiver
 from xritdemod_tpu_torch.ops import agc as agc_op
+from xritdemod_tpu_torch.ops import clock_recovery
 from xritdemod_tpu_torch.ops import costas as costas_op
+from xritdemod_tpu_torch.ops import scan as scan_op
 from xritdemod_tpu_torch.ops import viterbi as viterbi_op
 from xritdemod_tpu_torch.ops import (
     clock_cuda, filters, fir, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda,
 )
 from xritdemod_tpu_torch.ops.clock_recovery import NTAIL
+from xritdemod_tpu_torch.parallel import distributed as pdist
+from xritdemod_tpu_torch.parallel.channels import make_channel_mesh
+from xritdemod_tpu_torch.parallel.timeblocks import FoldedCaptureReceiver, TimeBlockDemodulator
 from xritdemod_tpu_torch.runtime.apps import DemodulatorApp, ReceiverApp
 from xritdemod_tpu_torch.runtime.config import demod_config_from_file
 from xritdemod_tpu_torch.runtime.frontends import CFileFrontend
-from xritdemod_tpu_torch.tools import interop_run, roll_probe
-from xritdemod_tpu_torch.utils.cplx import CF32, from_complex, quantize_iq_s8, to_complex
+from xritdemod_tpu_torch.tools import dist_worker, interop_run, long_soak, roll_probe
+from xritdemod_tpu_torch.utils.cplx import (
+    CF32, dequantize_iq_s8, from_complex, quantize_iq_s8, to_complex,
+)
 
 SEED = 20240
 CHANNELS = 2048
@@ -268,8 +285,10 @@ def clock_errs(k, p, what: str) -> list[float]:
     ]
 
 
-def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
-    """Each kernel against its plain version on the card.  The front end and
+def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
+                  where: str = "main path") -> list[dict]:
+    """Each kernel against its plain version on the card, at the shapes of
+    `rx`'s step on `(C, T)` blocks.  The front end and
     the clock run the capture's first two blocks chained, the kernel carrying
     its own state and the plain version its own, from the same cold start;
     both blocks are compared, and the times are the second block's (loops
@@ -278,9 +297,9 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     left.  One run of the plain front end serves three kernels: its AGC stage
     is the plain standalone AGC on the same block and gain, and its Costas
     stage, fed its own filter output, the plain standalone Costas loop
-    (`demod_frontend_plain(stages=...)`)."""
+    (`demod_frontend_plain(stages=...)`).  A disagreement fails `where`."""
     demod = rx._demod
-    C, T = CHANNELS, BLOCK_LEN
+    C, T = x0.re.shape
     st = demod.init_state_batch(C)
     fe_params = (demod._agc, demod._rrc_taps, demod._costas)
     rows = []
@@ -291,21 +310,21 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     p0 = frontend_cuda.demod_frontend_plain(xT0, st.agc_gain, st.rrc_hist, st.costas, *fe_params)
     errs0 = frontend_errs(k0, p0)
     if not max(errs0) <= 1e-4:
-        fail(f"front end, first block, disagrees with its plain version: {errs0}")
+        fail(f"{where}: front end, first block, disagrees with its plain version: {errs0}")
     # The clock's first block, on the plain front end's output for both.
     ck0 = (p0[0], st.clock, demod._clock, demod.num_slots)
     kc0 = clock_cuda.clock_recovery_block_kernel_batch_cl(*ck0)
     pc0 = clock_cuda.clock_recovery_block_plain_cl(*ck0)
-    cerrs0 = clock_errs(kc0, pc0, "clock, first block")
+    cerrs0 = clock_errs(kc0, pc0, f"{where}: clock, first block")
     if not max(cerrs0) <= 1e-4:
-        fail(f"clock, first block, disagrees with its plain version: {cerrs0}")
+        fail(f"{where}: clock, first block, disagrees with its plain version: {cerrs0}")
     # The sinc instance on the same input, each version from the same cold
     # state.
     ks0 = clock_cuda.clock_recovery_block_kernel_batch_cl(*ck0, "sinc")
     ps0 = clock_cuda.clock_recovery_block_plain_cl(*ck0, "sinc")
-    serrs0 = clock_errs(ks0, ps0, "clock (sinc), first block")
+    serrs0 = clock_errs(ks0, ps0, f"{where}: clock (sinc), first block")
     if not max(serrs0) <= 1e-4:
-        fail(f"clock (sinc), first block, disagrees with its plain version: {serrs0}")
+        fail(f"{where}: clock (sinc), first block, disagrees with its plain version: {serrs0}")
     del xT0, ck0
     k_state, p_state = k0[1:], p0[1:]
     kc_state, pc_state = kc0[2], pc0[2]
@@ -320,7 +339,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
         lambda: frontend_cuda.demod_frontend_plain(xT, *p_state, *fe_params, stages=stages))
     errs = frontend_errs(k_out, p_out)
     if not max(errs) <= 1e-4:
-        fail(f"front end, second block, disagrees with its plain version: {errs}")
+        fail(f"{where}: front end, second block, disagrees with its plain version: {errs}")
     errs = errs + errs0
     fe_args = (xT, *k_state, *fe_params)
     ms = time_ms(lambda: frontend_cuda.demod_frontend(*fe_args), 3)
@@ -343,7 +362,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     errs = [max_err(ky.re, stages["agc"].re.t()), max_err(ky.im, stages["agc"].im.t()),
             max_err(kg, p_out[1])]
     if not max(errs) <= 1e-4:
-        fail(f"agc_block_kernel disagrees with its plain version: {errs}")
+        fail(f"{where}: agc_block_kernel disagrees with its plain version: {errs}")
     ms = time_ms(lambda: stream_cuda.agc_block_kernel(*agc_args), 3)
     if PROFILE:
         stage_clocks("stream", stream_cuda.ROLES["agc_block"],
@@ -365,7 +384,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     errs = [max_err(ky.re, p_out[0].re.t()), max_err(ky.im, p_out[0].im.t()),
             max_err(ks_.phase, p_out[3].phase), max_err(ks_.freq, p_out[3].freq)]
     if not max(errs) <= 1e-4:
-        fail(f"costas_block_kernel disagrees with its plain version: {errs}")
+        fail(f"{where}: costas_block_kernel disagrees with its plain version: {errs}")
     ms = time_ms(lambda: stream_cuda.costas_block_kernel(*cos_args), 3)
     if PROFILE:
         stage_clocks("stream", stream_cuda.ROLES["costas_block"],
@@ -388,9 +407,9 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     torch.cuda.synchronize()
     (ps, pv, pst), plain_ms = once_ms(lambda: clock_cuda.clock_recovery_block_plain_cl(
         yT, pc_state, demod._clock, demod.num_slots))
-    errs = clock_errs((ks, kv, kst), (ps, pv, pst), "clock, second block")
+    errs = clock_errs((ks, kv, kst), (ps, pv, pst), f"{where}: clock, second block")
     if not max(errs) <= 1e-4:
-        fail(f"clock, second block, disagrees with its plain version: {errs}")
+        fail(f"{where}: clock, second block, disagrees with its plain version: {errs}")
     errs = errs + cerrs0
     ms = time_ms(lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*ck_args), 3)
     if PROFILE:
@@ -418,9 +437,9 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     torch.cuda.synchronize()
     sp, plain_ms = once_ms(lambda: clock_cuda.clock_recovery_block_plain_cl(
         yT, ps_state, demod._clock, demod.num_slots, "sinc"))
-    errs = clock_errs(sk, sp, "clock (sinc), second block")
+    errs = clock_errs(sk, sp, f"{where}: clock (sinc), second block")
     if not max(errs) <= 1e-4:
-        fail(f"clock (sinc), second block, disagrees with its plain version: {errs}")
+        fail(f"{where}: clock (sinc), second block, disagrees with its plain version: {errs}")
     errs = errs + serrs0
     sargs = (yT, ks_state, demod._clock, demod.num_slots, "sinc")
     ms = time_ms(lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*sargs), 3)
@@ -453,9 +472,9 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     (pr, pf, po), plain_ms = once_ms(
         lambda: ring_cuda.ring_append_plain(ring0.clone(), fill, ks.re, n_new))
     if not (torch.equal(kr, pr) and torch.equal(kf, pf) and torch.equal(ko, po)):
-        fail("ring_append differs from its plain version")
+        fail(f"{where}: ring_append differs from its plain version")
     if not bool(ko.any()) or bool(ko.all()):
-        fail("ring_append check: wanted some overflowing channels, not all")
+        fail(f"{where}: ring_append check: wanted some overflowing channels, not all")
     scratch = ring0.clone()
     ms = time_ms(lambda: ring_cuda.ring_append(scratch, fill, ks.re, n_new), 10)
     moved = int(n_new[~ko].sum())
@@ -467,14 +486,17 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     ))
 
     # K4b ring extract: random positions; channels short of a frame stay.
+    # Every 61st channel holds half a frame, so some are short at any C.
     E = K.CODED_FRAME_SIZE
+    kf[1::61] = E // 2
+    kr[1::61, E // 2 :] = 0
     pos = torch.randint(0, E, (C,), generator=g).to(torch.int32).to(DEV)
     kout = ring_cuda.ring_extract(kr, kf, pos, E)
     pout, plain_ms = once_ms(lambda: ring_cuda.ring_extract_plain(kr, kf, pos, E))
     if not all(torch.equal(a, b) for a, b in zip(kout, pout)):
-        fail("ring_extract differs from its plain version")
+        fail(f"{where}: ring_extract differs from its plain version")
     if bool(kout[3].all()) or not bool(kout[3].any()):
-        fail("ring_extract check: wanted both ok and not-ok channels")
+        fail(f"{where}: ring_extract check: wanted both ok and not-ok channels")
     ms = time_ms(lambda: ring_cuda.ring_extract(kr, kf, pos, E), 10)
     # Least traffic for these fills and positions: a channel that pops reads
     # the symbols it keeps and writes them at the front, zeroes the slots it
@@ -506,7 +528,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     pb, plain_ms = once_ms(lambda: viterbi_cuda.decode_bits_plain(wins))
     nbad = int((kb != pb).sum())
     if nbad:
-        fail(f"viterbi differs from its plain version in {nbad} bits")
+        fail(f"{where}: viterbi differs from its plain version in {nbad} bits")
     ms = time_ms(lambda: viterbi_cuda.decode_bits(wins), 5)
     NW = wins.shape[0]
     bms, by = bound(NW * Lw * 9.0, NW * Lw * (64 * 4 + 12.0))
@@ -516,7 +538,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
     for nw in (128, 16):
         w_s = wins[:nw, : 2 * 770].contiguous()
         if not torch.equal(viterbi_cuda.decode_bits(w_s), viterbi_cuda.decode_bits_plain(w_s)):
-            fail(f"viterbi at {nw} x 770 differs from its plain version")
+            fail(f"{where}: viterbi at {nw} x 770 differs from its plain version")
         split_shapes.append(dict(
             windows=nw, steps=770, lanes=viterbi_cuda.lanes_per_window(nw),
             ms=time_ms(lambda: viterbi_cuda.decode_bits(w_s), 20)))
@@ -525,11 +547,8 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus) -> list[dict]:
         replaces="xritdemod_tpu/ops/viterbi_pallas.py:253", max_abs_err=0.0, tolerance="exact",
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
         lanes=viterbi_cuda.lanes_per_window(NW), split_shapes=split_shapes,
+        windows=NW, steps=Lw,
     ))
-    # Decisions written once and read back once, 8 B a window-step: computed,
-    # not measured, so on a line of its own.
-    say("viterbi", windows=NW, steps=Lw, lanes=viterbi_cuda.lanes_per_window(NW),
-        decision_traffic_floor_ms=2 * 8.0 * NW * Lw / PEAK_BYTES * 1e3)
     return rows
 
 
@@ -758,6 +777,46 @@ def check_fir() -> dict:
                          bare_conv1d_max_abs_err_under_global_flags=max(bare))
         if not max(errs) <= tol:
             fail(f"fir {name}: fir_block differs from the ascending-tap sum by {max(errs)}")
+    return out
+
+
+def _leaves(o) -> list:
+    return [o] if isinstance(o, torch.Tensor) else [t for v in o for t in _leaves(v)]
+
+
+def check_scan() -> dict:
+    """The plain recurrences' CUDA graphs (`ops/scan.py`, through which
+    every plain version below is held against its kernel) against the same
+    loops run eagerly: Costas, AGC and the clock (mmse, sinc) over 8192
+    samples of 128 channels, every output and carry bit-equal; each form's
+    seconds."""
+    C, T = 128, 8192
+    g = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    xr, xi = (torch.randn((T, C), generator=g, device=DEV) for _ in range(2))
+    d = Demodulator(DemodConfig.lrit(sample_rate=1_250_000), T)
+    x = CF32((0.3 * xr + torch.sign(xr)).t().contiguous(), (0.3 * xi).t().contiguous())
+    clock = lambda interp: clock_recovery.clock_recovery_block_batch(
+        x, d.init_state_batch(C).clock, d._clock, d.num_slots, interp)
+    runs = dict(
+        costas=lambda: costas_op.costas_steps(xr, xi, costas_op.costas_init((C,), DEV),
+                                              d._costas),
+        agc=lambda: agc_op.agc_gains(xr.abs(), torch.ones(C, device=DEV), d._agc),
+        clock=lambda: clock("mmse"), clock_sinc=lambda: clock("sinc"))
+    out, chunk = dict(shape=[C, T], chunk=scan_op.CHUNK), scan_op.CHUNK
+    for name, fn in runs.items():
+        got, sec = [], []
+        for c in (0, chunk):
+            scan_op.CHUNK = c
+            try:
+                t0 = time.perf_counter()
+                got.append(_leaves(fn()))
+                torch.cuda.synchronize()
+                sec.append(time.perf_counter() - t0)
+            finally:
+                scan_op.CHUNK = chunk
+        if not all(torch.equal(a, b) for a, b in zip(*got)):
+            fail(f"scan: the graphed {name} loop differs from the eager one")
+        out[name] = dict(eager_s=sec[0], graph_s=sec[1])
     return out
 
 
@@ -1300,14 +1359,15 @@ SERIAL_BLOCKS = 16
 @torch.inference_mode()    # no autograd bookkeeping in the plain loops' steps
 def check_serial_kernels(demod: Demodulator, x: np.ndarray, where: str = "serial path",
                          interps=("mmse", "sinc")) -> dict:
-    """The kernels `process` launches, each against its plain version at
-    the serial path's shape, one channel of 131072 samples: the stream's
-    first block from the cold state.  K5 on the block; K6 on the plain AGC's
-    output after the RRC; K2, each instance of `interps`, on the plain
-    Costas loop's output, through the `(C, T)` entry that `process` calls.
+    """The kernels `process` (one channel, `x` of shape `(T,)`) or the split
+    `block_batch` (`(C, T)`) launches, each against its plain version at
+    that shape, from the cold state: on the serial path one channel of
+    131072 samples, the stream's first block.  K5 on the block; K6 on the
+    plain AGC's output after the RRC; K2, each instance of `interps`, on the
+    plain Costas loop's output, through the `(C, T)` entry that both call.
     Returns the largest differences; fails `where` above 1e-4."""
-    st = demod.init_state_batch(1)
-    x = from_complex(x[None, :], DEV)
+    x = from_complex(x if x.ndim == 2 else x[None, :], DEV)
+    st = demod.init_state_batch(x.re.shape[0])
     out = {}
     ka, kg = stream_cuda.agc_block_kernel(x, st.agc_gain, demod._agc)
     pa, pg = agc_op.agc_block(x, st.agc_gain, demod._agc)
@@ -1326,8 +1386,8 @@ def check_serial_kernels(demod: Demodulator, x: np.ndarray, where: str = "serial
             yT, st.clock, demod._clock, demod.num_slots, interp)
         out[name] = max(clock_errs(k, p, f"{where} {name}"))
     if not max(out.values()) <= 1e-4:
-        fail(f"{where}: a kernel disagrees with its plain version at (1, {x.re.shape[1]}): "
-             f"{out}")
+        fail(f"{where}: a kernel disagrees with its plain version at "
+             f"{tuple(x.re.shape)}: {out}")
     return out
 
 
@@ -1703,6 +1763,364 @@ def decode_multi_phase(vcdus, smi: str) -> dict:
                        "time under torch.profiler, one call")
 
 
+# --------------------------------------------------------------------------
+# the parallel layer: fold-parallel reprocess at full width, the three axes
+# --------------------------------------------------------------------------
+
+SOAK_S = 60.0            # LRIT at 1.25 Msps: the reference's soak, 1075 frames
+SOAK_HRIT_S = 10.0       # HRIT at 3 Msps: NRZ-M across the fold seams
+FOLDS = 128
+MESH_ENTRIES = 4         # repeated cuda:0 entries: a mesh on one card
+MESH_CPD = 128           # channels a slab (channel axis, sharded fused)
+MESH_FUSED_BLOCKS = 4
+TB_BLOCK = 1 << 20       # the reference's default time block
+TB_BLOCKS = 4
+TB_LANE_TOL = 5e-4        # batched time-block rows against one-lane `process`: the serial tolerance
+PARALLEL_KERNELS = ("frontend", "clock", "viterbi", "ring_append", "ring_extract",
+                    "agc_block", "costas_block")
+
+
+def start_parallel_captures() -> dict:
+    """The soak's captures for the `parallel` phase, on the s8 wire, made by
+    two spawned workers started right after the build (`long_soak.py`'s
+    synthesis: 60 s of LRIT at 1.25 Msps, 10 s of HRIT at 3 Msps, 100 ppm
+    clock drift, 2e-5 carrier drift) into a temporary directory removed at
+    exit, beside each capture the config file `cli reprocess` reads."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    caps, cfgs = {}, {}
+    for mode, rate in (("lrit", 1_250_000), ("hrit", 3_000_000)):
+        caps[mode] = os.path.join(tmp, f"{mode}.s8")
+        cfgs[mode] = os.path.join(tmp, f"{mode}.cfg")
+        with open(cfgs[mode], "w") as f:
+            f.write(f"mode={mode}\nsampleRate={rate}\ndecimation=1\n")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    jobs = {m: pool.submit(long_soak.write_capture, caps[m], s, m)
+            for m, s in (("lrit", SOAK_S), ("hrit", SOAK_HRIT_S))}
+    return dict(tmp=tmp, caps=caps, cfgs=cfgs, jobs=jobs, pool=pool)
+
+
+class _Counted:
+    """Sums the kernel launch counts of the runs made inside `with` blocks
+    (the paths driven), leaving out what runs between them (the runs they
+    are compared with)."""
+
+    def __init__(self):
+        self.total = {k: 0 for k in read_counts()}
+
+    def __enter__(self):
+        reset_counts()
+
+    def __exit__(self, *exc):
+        for k, n in read_counts().items():
+            self.total[k] += n
+
+
+def check_fold_kernels(rx: FoldedCaptureReceiver, cap: np.ndarray, streams) -> dict:
+    """The fold path's kernels (K1, K2, K4a, K4b, K3; and K2-sinc, K5, K6
+    on the same inputs) against their plain versions at its shapes:
+    `check_kernels` through the receiver's `FusedReceiver(channels=FOLDS)`
+    on the capture's first two fold blocks, dequantized on the card as
+    `step_int8` does.  `streams` are the per-stream VCDUs that K3's frames
+    are encoded from."""
+    t0 = time.perf_counter()
+    starts, nblocks = rx._fold_starts(len(cap) // 2)
+    buf, noise = np.zeros((FOLDS, 2 * BLOCK_LEN), np.int8), rx._noise(True)
+    x = [dequantize_iq_s8(torch.from_numpy(rx._block(cap, starts, j, nblocks, buf, noise, 2))
+                          .to(DEV)) for j in (0, 1)]
+    rows = check_kernels(rx._get_rx(), *x, streams, where="parallel fold path")
+    return dict(shape=[FOLDS, BLOCK_LEN], seconds=time.perf_counter() - t0, kernels={
+        r["name"]: dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"]) for r in rows})
+
+
+def soak_run(mode: str, prep: dict, vcdus, counted: _Counted, streams=None) -> dict:
+    """(a) One capture through `long_soak.run` (`FoldedCaptureReceiver`, 128
+    folds, `step_int8`) and through `cli reprocess` in its own process.
+    With `streams` (`check_fold_kernels`), the fold path's kernels are then
+    held against their plain versions on the capture's first two blocks."""
+    cfg = long_soak.soak_config(mode)
+    cap = np.fromfile(prep["caps"][mode], np.int8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted:
+        res = long_soak.run(cfg, cap, vcdus, folds=FOLDS, block_len=BLOCK_LEN)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rx, frames = res.pop("receiver"), res.pop("frames")
+    # Each fold step again, synchronised, and one under torch.profiler.
+    frx = rx._get_rx()
+    starts, nblocks = rx._fold_starts(len(cap) // 2)
+    buf, noise = np.zeros((FOLDS, 2 * BLOCK_LEN), np.int8), rx._noise(True)
+    stepper = _Stepper(frx.step_int8, frx.init_state())
+    step_ms = []
+    for j in range(nblocks + 2):
+        rx._block(cap, starts, j, nblocks, buf, noise, 2)
+        step_ms.append(once_ms(lambda: stepper(buf))[1])
+    rx._block(cap, starts, 1, nblocks, buf, noise, 2)
+    busy, rows = device_kernels(lambda: stepper(buf))
+    # `cli reprocess` on the same file, as a user runs it.
+    out_dir = os.path.join(prep["tmp"], f"channels_{mode}")
+    t0 = time.perf_counter()
+    cli_run = subprocess.run(
+        [sys.executable, "-m", "xritdemod_tpu_torch.cli", "reprocess", prep["caps"][mode],
+         "--format", "s8", "--config", prep["cfgs"][mode], "--out", out_dir],
+        capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    chan = os.path.join(out_dir, f"channel_{long_soak.VCID}.bin")
+    chan_bytes = open(chan, "rb").read() if os.path.exists(chan) else b""
+    seconds = res["samples"] / cfg.sample_rate
+    r = dict(
+        mode=mode, seconds_of_signal=seconds, sample_rate=cfg.sample_rate,
+        capture_mb=len(cap) / 1e6, **res, wall_s_incl_warmup=wall,
+        fold_step_ms=step_ms, device_busy_ms_one_step=busy,
+        device_top=[dict(name=k[:60], ms=ms) for k, ms, _ in rows[:6]],
+        peak_memory_gb=peak / 1e9,
+        cli=dict(rc=cli_run.returncode, seconds=cli_s, x_realtime=seconds / cli_s,
+                 stdout=cli_run.stdout.strip().splitlines()[-2:],
+                 channel_file_bytes=len(chan_bytes),
+                 channel_file_equals_sent=chan_bytes == b"".join(v.tobytes() for v in vcdus)),
+    )
+    problems = []
+    if r["frames_missing"] or r["payload_mismatches"] or r["unexplained"] or r["duplicates"]:
+        problems.append("frames lost, corrupted, unexplained or duplicated: "
+                        f"{r['missing_counters']} {r['unexplained_frames']}")
+    if not r["counters_ascending"]:
+        problems.append("counters out of order")
+    if cli_run.returncode or not r["cli"]["channel_file_equals_sent"]:
+        problems.append(f"cli reprocess: rc {cli_run.returncode}, channel file "
+                        f"{len(chan_bytes)} bytes: {cli_run.stderr[-2000:]}")
+    r["failures"] = problems
+    if streams is not None:
+        r["fold_kernels"] = check_fold_kernels(rx, cap, streams)
+    return r
+
+
+def first_difference(names, got, want) -> str | None:
+    """The first of the named tensors that differ, with its first index."""
+    for name, a, b in zip(names, got, want):
+        if a.shape != b.shape or not torch.equal(a, b):
+            idx = (a != b).nonzero()[0].tolist() if a.shape == b.shape else "shape"
+            return f"{name} at {idx} (chip_smoke.py mesh_axes)"
+    return None
+
+
+def fused_frames(batch, ok) -> list:
+    fok = (batch.frame_ok & ok).cpu().numpy()
+    ctr, vcid, vc = batch.counter.cpu().numpy(), batch.vcid.cpu().numpy(), batch.vcdu.cpu().numpy()
+    return [(int(c), int(vcid[c, j]), int(ctr[c, j]), vc[c, j].tobytes())
+            for c, j in zip(*np.nonzero(fok))]
+
+
+def mesh_axes(base: CF32, delays, vcdus, counted: _Counted) -> dict:
+    """(b) The three axes on a mesh of MESH_ENTRIES repeated `cuda:0`
+    entries, each against its unsharded counterpart."""
+    cfg = DemodConfig.lrit(sample_rate=1_250_000)
+    mesh = pdist.make_host_mesh([DEV] * MESH_ENTRIES)
+    C = MESH_CPD * MESH_ENTRIES
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 70)
+    out = {}
+
+    # Channel axis: demod bit-equal to one unsharded batch; one real coded
+    # frame per channel decoded bit-exact.
+    x = make_block(base, delays[:C], 0, gen)
+    drx = pdist.DistributedChannelReceiver(
+        cfg, DecoderConfig(mode="lrit", frames_per_block=1), channels_per_device=MESH_CPD,
+        block_len=BLOCK_LEN, mesh=mesh)
+    with counted:
+        (soft, valid, _), ms = once_ms(lambda: drx.demod_block(x, drx.init_demod_state()))
+    ref = Demodulator(cfg, BLOCK_LEN)
+    (rs, rv, _), ref_ms = once_ms(lambda: ref.block_batch(x, ref.init_state_batch(C)))
+    diff = first_difference(("valid", "soft"), (valid, soft), (rv, rs))
+    sym = np.stack([tx.encode_stream(vcdus[s][:1], lrit=True, noise=0.0,
+                                     rng=np.random.default_rng(SEED + 71 + s))
+                    for s in range(STREAMS)])
+    frames = torch.from_numpy(sym).to(DEV).repeat(C // STREAMS, 1)
+    frames *= torch.where(torch.arange(C, device=DEV) % 3 == 1, -1.0, 1.0)[:, None]
+    frames += 0.3 * torch.randn(frames.shape, generator=gen, device=DEV)
+    with counted:
+        batch, _ = drx.decode_block(frames, drx.init_tails())
+    want = torch.from_numpy(np.stack([vcdus[c % STREAMS][0] for c in range(C)])).to(DEV)
+    dec_ok = bool(batch.frame_ok.all()) and torch.equal(batch.vcdu[:, 0], want)
+    out["channel_axis"] = dict(
+        mesh=mesh.shape, channels=C, block_len=BLOCK_LEN, bit_equal_to_unsharded=diff is None,
+        first_difference=diff, ms=ms, unsharded_ms=ref_ms, symbols=int(valid.sum()),
+        decode_frames=C, decode_bit_exact=dec_ok, decode_ok=int(batch.frame_ok.sum()))
+    del x, soft, valid, rs, rv, frames, batch
+
+    # Time-block axis: D blocks of 2^20 (+ halo) as the rows of one batched
+    # split-path launch, frames through a StreamDecoder per block; the rows
+    # against one-lane `process` calls on the same extended blocks.
+    tcfg = cfg
+    dec_ov = dist_worker.tb_decode_overlap(tcfg)
+    sig, tbv = dist_worker.timeblock_capture(tcfg, TB_BLOCKS, TB_BLOCK)
+    tb = TimeBlockDemodulator(tcfg, make_channel_mesh([DEV] * TB_BLOCKS, "t"),
+                              block_len=TB_BLOCK, warmup=dist_worker.TB_WARMUP,
+                              decode_overlap=dec_ov)
+    xs = from_complex(sig, DEV)
+    with counted:
+        (tsoft, tvalid), tb_ms = once_ms(lambda: tb.process(xs))
+        rows = dist_worker.timeblock_frames(tsoft, tvalid, DEV)
+    lane = Demodulator(dataclasses.replace(tcfg, frontend_kernel="split"), tb.halo + TB_BLOCK)
+    H, lane_err, lane_over = tb.halo, 0.0, 0
+    for d in range(TB_BLOCKS):
+        lo = d * TB_BLOCK
+        ext = CF32(*(torch.cat([p.new_zeros(H) if d == 0 else p[lo - H : lo],
+                                p[lo : lo + TB_BLOCK]]) for p in (xs.re, xs.im)))
+        s1, v1, _ = lane.process(ext, lane.init_state())
+        v1 = v1 & (torch.arange(v1.shape[0], device=DEV) >= tb.nwarm)
+        if not torch.equal(v1, tvalid[d]):
+            fail(f"parallel time blocks: block {d}'s valid differs from one-lane process")
+        e = (tsoft[d][v1] - s1[v1]).abs()
+        lane_err = max(lane_err, float(e.max()))
+        lane_over += int((e > 5e-4).sum())
+    span = K.CODED_FRAME_SIZE * tcfg.sps
+    total = TB_BLOCKS * TB_BLOCK
+    sent = {(dist_worker.TB_VCID, dist_worker.TB_COUNTER0 + i): v.tobytes().hex()
+            for i, v in enumerate(tbv)}
+    got = {(v, c): h for row in rows for v, c, h in row}
+    owed = {(dist_worker.TB_VCID, dist_worker.TB_COUNTER0 + i) for i in range(len(tbv))
+            if i * span >= 12000 and (i + 1) * span + 1000 <= total}
+    seams = [d * TB_BLOCK for d in range(1, TB_BLOCKS)]
+    across = sum(1 for _, c in owed
+                 if any((c - dist_worker.TB_COUNTER0) * span < s < (c - dist_worker.TB_COUNTER0
+                                                                     + 1) * span for s in seams))
+    out["timeblock_axis"] = dict(
+        blocks=TB_BLOCKS, block_len=TB_BLOCK, halo=H, decode_overlap=dec_ov, num_slots=tb.num_slots,
+        frames_sent=len(tbv), frames_owed=len(owed), frames_across_seams=across,
+        frames_missing=sorted(c for _, c in owed - set(got))[:8],
+        frames_wrong=sum(1 for k, h in got.items() if sent.get(k) != h),
+        ms=tb_ms, one_lane_max_abs_err=lane_err, one_lane_symbols_over_5e_4=lane_over)
+    out["timeblock_frames"] = rows
+    del xs, tsoft, tvalid
+    # The split path's kernels against their plain versions on the rows
+    # the batched launch was given (halo + block, past 2^17 samples: the
+    # slot budget is segmented).
+    t0 = time.perf_counter()
+    rows_x = np.stack([np.concatenate([np.zeros(H, np.complex64) if d == 0 else
+                                       sig[d * TB_BLOCK - H : d * TB_BLOCK],
+                                       sig[d * TB_BLOCK : (d + 1) * TB_BLOCK]])
+                       for d in range(TB_BLOCKS)])
+    errs = check_serial_kernels(tb._demods[tb.mesh.devices[0]], rows_x, "parallel time-block rows",
+                                (tcfg.clock_interp,))
+    out["timeblock_axis"]["rows_kernels"] = dict(
+        shape=list(rows_x.shape), num_slots=tb.num_slots, max_abs_err=errs,
+        seconds=time.perf_counter() - t0)
+
+    # Sharded fused: MESH_ENTRIES FusedReceivers of MESH_CPD channels against
+    # one FusedReceiver(channels=C), on the same blocks.
+    frx = pdist.DistributedFusedReceiver(cfg, DecoderConfig(mode="lrit"),
+                                         channels_per_device=MESH_CPD, block_len=BLOCK_LEN,
+                                         mesh=mesh)
+    urx = FusedReceiver(cfg, DecoderConfig(mode="lrit"), channels=C, block_len=BLOCK_LEN)
+    dst, ust = frx.init_state(), urx.init_state()
+    got_d, got_u, d_ms, u_ms = [], [], [], []
+    for b in range(MESH_FUSED_BLOCKS):
+        x = make_block(base, delays[:C], b, gen)
+        with counted:
+            (db, dok, _, dst), t = once_ms(lambda: frx.step(x, dst))
+        d_ms.append(t)
+        (ub, uok, _, ust), t = once_ms(lambda: urx.step(x, ust))
+        u_ms.append(t)
+        got_d += fused_frames(db, dok)
+        got_u += fused_frames(ub, uok)
+    sentv = {(s + 1, 1000 * (s + 1) + i): v.tobytes() for s in range(STREAMS)
+             for i, v in enumerate(vcdus[s])}
+    comp = {bytes(255 - x for x in v) for v in sentv.values()}
+    exact = sum(1 for _, v, c, b in got_d if sentv.get((v, c)) == b)
+    complements = sum(1 for _, v, c, b in got_d if sentv.get((v, c)) != b and b in comp)
+    out["sharded_fused"] = dict(
+        mesh=mesh.shape, channels=C, blocks=MESH_FUSED_BLOCKS, frames=len(got_d),
+        frames_equal_to_unsharded=got_d == got_u, frames_exact=exact,
+        frames_complement=complements, frames_wrong=len(got_d) - exact - complements,
+        ms_per_step=d_ms, unsharded_ms_per_step=u_ms)
+    return out
+
+
+def two_process_run(prep: dict, tb_rows) -> dict:
+    """(c) Two `tools/dist_worker.py` ranks on this card (gloo, a `file://`
+    store, 2 entries each); their time-block frames against (b)'s."""
+    store = os.path.join(prep["tmp"], "store")
+    outs = [os.path.join(prep["tmp"], f"tb{r}.json") for r in range(2)]
+    cmd = lambda r: [
+        sys.executable, "-m", "xritdemod_tpu_torch.tools.dist_worker", str(r), "2",
+        f"file://{store}", "gloo", "cuda:0", "2", "--rate", "1250000",
+        "--tb-block", str(TB_BLOCK), "--channels-per-device", str(MESH_CPD),
+        "--channel-block", str(BLOCK_LEN), "--fused-block", str(1 << 15), "--tb-out", outs[r]]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd(r), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=400)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    got = {}
+    for path in outs:
+        if os.path.exists(path):
+            got.update(json.load(open(path)))
+    return dict(
+        ranks=2, backend="gloo", device="cuda:0", entries_per_rank=2, seconds=seconds,
+        rcs=[p.returncode for p in procs], all_ok=["ALL OK" in log for log in logs],
+        timeblock_frames_equal=[got.get(str(d)) for d in range(TB_BLOCKS)] == tb_rows,
+        log=[log.strip().splitlines()[-6:] for log in logs])
+
+
+def parallel_phase(smi: str, prep: dict, base: CF32, delays, vcdus) -> dict:
+    """The parallel layer on the card.
+
+    (a) The soak at full width: 60 s of LRIT at 1.25 Msps (100 ppm clock
+        drift, 2e-5 carrier drift, s8 wire) through `long_soak.run`
+        (`FoldedCaptureReceiver`, 128 folds: 6 blocks and 2 flush steps of
+        `step_int8` at C = 128) and through `cli reprocess` as a process;
+        then 10 s of HRIT at 3 Msps the same way.  Every sent frame
+        bit-exact, counters ascending, no duplicate; a frame not sent only
+        as the exact complement of a sent one (counted apart); the channel
+        file equal to the sent VCDUs.
+    (b) `mesh_axes`: the channel axis, the time-block axis and the sharded
+        fused receive on a mesh of 4 `cuda:0` entries.
+    (c) `two_process_run`: two ranks of `tools/dist_worker.py`.
+    The launches of the paths (not of their references) are counted.  The
+    fold path's kernels (`check_fold_kernels`, C = 128) and the split
+    path's on the time-block rows (past 2^17 samples: a segmented slot
+    budget) are held against their plain versions."""
+    sent = {m: j.result() for m, j in prep["jobs"].items()}
+    prep["pool"].shutdown()
+    counted = _Counted()
+    soak = {m: soak_run(m, prep, sent[m], counted, vcdus if m == "lrit" else None)
+            for m in ("lrit", "hrit")}
+    axes = mesh_axes(base, delays, vcdus, counted)
+    tb_rows = axes.pop("timeblock_frames")
+    two = two_process_run(prep, tb_rows)
+    say("parallel", card=smi, soak=soak, **axes, two_process=two, launches=counted.total,
+        tolerance=f"bit-equal; one-lane process against the batched time-block rows: "
+                  f"valid equal, soft within {TB_LANE_TOL}, frames bit-exact; the fold path's "
+                  f"and the segmented budget's kernels against their plain versions: 1e-4")
+    for m, r in soak.items():
+        if r["failures"]:
+            fail(f"parallel soak ({m}): {r['failures']}")
+    ca, tb, sf = axes["channel_axis"], axes["timeblock_axis"], axes["sharded_fused"]
+    if not ca["bit_equal_to_unsharded"] or not ca["decode_bit_exact"]:
+        fail(f"parallel channel axis: {ca}")
+    if tb["frames_missing"] or tb["frames_wrong"] or not tb["frames_across_seams"] \
+            or not tb["one_lane_max_abs_err"] <= TB_LANE_TOL:
+        fail(f"parallel time blocks: {tb}")
+    if not sf["frames_equal_to_unsharded"] or sf["frames_wrong"] \
+            or sf["frames_complement"] > max(1, sf["channels"] // 100) \
+            or sf["frames_exact"] < 2 * sf["channels"]:
+        fail(f"parallel sharded fused: {sf}")
+    if any(two["rcs"]) or not all(two["all_ok"]) or not two["timeblock_frames_equal"]:
+        fail(f"parallel two processes: {two}")
+    check_counts("parallel path", counted.total, PARALLEL_KERNELS)
+    return counted.total
+
+
 def device_kernels(fn) -> tuple[float, list]:
     """Summed device time of the kernels of one run of `fn` (torch.profiler),
     and its rows (name, ms, calls), largest first."""
@@ -1796,7 +2214,9 @@ def main() -> None:
         fail(f"clock: both instances must build without spill, mmse without stack frame: {k2}")
 
     say("fir", card=smi, **check_fir())
+    say("scan", card=smi, **check_scan())
     app_captures = start_app_captures()
+    parallel_captures = start_parallel_captures()
 
     cfg = DemodConfig.lrit(sample_rate=1_250_000)
     dcfg = DecoderConfig(mode="lrit")
@@ -1808,6 +2228,11 @@ def main() -> None:
     x0, x1 = (make_block(base, delays, b, gen) for b in (0, 1))
     rows = check_kernels(rx, x0, x1, vcdus)
     del x0, x1
+    # Decisions written once and read back once, 8 B a window-step: computed,
+    # not measured, so on a line of its own.
+    k3 = next(r for r in rows if r["name"] == "viterbi")
+    say("viterbi", windows=k3["windows"], steps=k3["steps"], lanes=k3["lanes"],
+        decision_traffic_floor_ms=2 * 8.0 * k3["windows"] * k3["steps"] / PEAK_BYTES * 1e3)
     torch.cuda.empty_cache()
     rows.append(check_roll())
     say("kernels", card=smi, ragged_shapes_max_abs_err=check_ragged(rx), kernels=[
@@ -1856,6 +2281,8 @@ def main() -> None:
     apps_counts = apps_phase(smi, app_captures)
     say("decode_multi", **decode_multi_phase(vcdus, smi))
     torch.cuda.empty_cache()
+    parallel_counts = parallel_phase(smi, parallel_captures, base, delays, vcdus)
+    torch.cuda.empty_cache()
 
     # The roll probe is a tool, not a stage of either receive path: its path
     # is its own entry point.
@@ -1881,9 +2308,12 @@ def main() -> None:
             r["launches"] = roll_counts[name]
         if name in APPS_KERNELS:
             r["launches_apps"] = apps_counts[name]
+        if name in PARALLEL_KERNELS:
+            r["launches_parallel"] = parallel_counts[name]
     say("total", seconds=time.perf_counter() - t_start, seconds_up_to_each_line=PHASE_S)
     print(smi, flush=True)
-    extra = ("launches_split_path", "launches_apps", "lanes", "split_shapes", "form")
+    extra = ("launches_split_path", "launches_apps", "launches_parallel", "lanes",
+             "split_shapes", "form")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -94,3 +94,20 @@ def quiet(collectors, settle=0.3):
             return
         last = cur
         time.sleep(settle)
+
+
+def assert_soft_close(got, want, valid, atol=5e-4):
+    """Soft symbols of two demodulators that agree to a rounding: within
+    `atol` (the serial path's 5e-4) on all but at most 0.5 % of the valid
+    symbols, those within 1e-2, and every decision equal.  Over long blocks
+    a rounding difference (the exact AGC against the reference's
+    associative scan, or the decimating FIR's order of sums) now and then
+    moves the clock's mu across one of the MMSE table's 128 rows: that
+    symbol moves by up to ~3e-3 and the next few by less, until the loop
+    pulls them back."""
+    got, want, valid = (np.asarray(a) for a in (got, want, valid))
+    g, w = got[valid], want[valid]
+    err = np.abs(g - w)
+    assert (err > atol).sum() <= 0.005 * valid.sum(), int((err > atol).sum())
+    assert err.max(initial=0.0) < 1e-2, float(err.max())
+    np.testing.assert_array_equal(g < 0, w < 0)

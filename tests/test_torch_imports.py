@@ -70,7 +70,8 @@ def test_importing_the_frontends_loads_no_sdr_library(probe):
     "models.demodulator", "convert", "ops.snr", "ops.clock_recovery", "cli",
     "runtime.apps", "runtime.config", "runtime.native", "runtime.checkpoint",
     "runtime.metrics", "runtime.frontends", "runtime.usb_frontends", "runtime.spyserver",
-    "tools.interop_run",
+    "tools.interop_run", "parallel.channels", "parallel.timeblocks", "parallel.distributed",
+    "tools.dist_worker", "tools.long_soak", "ops.scan",
 ])
 def test_kernel_and_entry_modules_import_without_a_gpu_toolchain(probe, module):
     """Each was imported by a process that ends with no `jax`, `jaxlib`,
@@ -248,3 +249,78 @@ def test_runtime_copies_match(name):
     how = _RUNTIME_COPIES[name]
     drop = how.get("drop", ())
     assert _code_of(port, drop=drop) == _code_of(ref, how.get("edits", ()), drop)
+
+
+# Every module that launches a kernel, and its launches.
+_LAUNCHERS = {
+    "ops/frontend_cuda.py": 2, "ops/clock_cuda.py": 1, "ops/viterbi_cuda.py": 1,
+    "ops/ring_cuda.py": 2, "ops/stream_cuda.py": 2, "tools/roll_probe.py": 1,
+    "tools/kernel_probe.py": 1,
+}
+
+
+@pytest.mark.parametrize("path", sorted(_LAUNCHERS))
+def test_wrappers_launch_on_their_inputs_device(path):
+    """Each kernel launch runs inside `with _build.launch_on(t) as stream:`
+    for one of its input tensors `t` and passes that `stream` to the kernel;
+    no wrapper reads the current device's stream itself (which would put a
+    launch on `cuda:1` data on `cuda:0`'s stream)."""
+    tree = ast.parse(open(os.path.join(ROOT, "xritdemod_tpu_torch", path)).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute):
+            assert node.attr != "current_stream", (path, node.lineno)
+    launches = 0
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.With):
+            continue
+        ctx = node.items[0].context_expr
+        if not (isinstance(ctx, ast.Call) and ast.unparse(ctx.func) == "_build.launch_on"):
+            assert "cuda.device" not in ast.unparse(ctx), (path, node.lineno)
+            continue
+        launches += 1
+        assert isinstance(ctx.args[0], ast.Name) and node.items[0].optional_vars.id == "stream"
+        calls = [c for b in node.body for c in ast.walk(b) if isinstance(c, ast.Call)]
+        assert any(c.args and ast.unparse(c.args[-1]) == "stream" for c in calls), (
+            path, node.lineno)
+    checks = sum(1 for n in ast.walk(tree) if isinstance(n, ast.Call)
+                 and ast.unparse(n.func) == "_build.check")
+    assert launches == checks == _LAUNCHERS[path]
+
+
+def test_launch_on_takes_the_device_and_stream_of_its_input(monkeypatch):
+    """`_build.launch_on` makes the input's device current and hands out the
+    current stream of that device (stubbed: this box has no CUDA)."""
+    import torch
+
+    from xritdemod_tpu_torch import _build
+
+    seen = []
+
+    class Device:
+        def __init__(self, d):
+            seen.append(("device", d))
+
+        def __enter__(self):
+            seen.append("enter")
+
+        def __exit__(self, *exc):
+            seen.append("exit")
+            return False
+
+    class Stream:
+        cuda_stream = 0x5EED
+
+    def current_stream(device=None):
+        seen.append(("stream", device))
+        return Stream
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+
+    class OnCuda1:
+        device = torch.device("cuda", 1)
+
+    with _build.launch_on(OnCuda1()) as stream:
+        assert stream == 0x5EED
+        assert seen == [("device", OnCuda1.device), "enter", ("stream", OnCuda1.device)]
+    assert seen[-1] == "exit"

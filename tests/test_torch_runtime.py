@@ -357,6 +357,9 @@ def test_metrics_rates_and_trace(tmp_path):
      dict(cmd="decode", config="d.cfg", display=True, device="cuda")),
     (["rx", "--dump", "--file", "c.c64", "--device", "cpu"],
      dict(cmd="rx", dump=True, file="c.c64", config="xritdemod.cfg", device="cpu")),
+    (["reprocess", "x.s8", "--format", "s8", "--folds", "64"],
+     dict(cmd="reprocess", file="x.s8", format="s8", folds=64, block_len=1 << 17,
+          out="channels", config="xritdemod.cfg", device="cuda")),
 ])
 def test_cli_arguments(argv, expect):
     args = cli._parser().parse_args(argv)
@@ -364,7 +367,7 @@ def test_cli_arguments(argv, expect):
         assert getattr(args, k) == v, k
 
 
-@pytest.mark.parametrize("argv", [["reprocess", "x.c64"], ["demod", "--format", "c32"], []])
+@pytest.mark.parametrize("argv", [["reprocess"], ["demod", "--format", "c32"], []])
 def test_cli_rejects(argv):
     with pytest.raises(SystemExit):
         cli._parser().parse_args(argv)

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 __all__ = ["KERNELS", "build_all", "load", "build_dir", "build_variant", "using",
-           "stage_clocks", "check"]
+           "stage_clocks", "check", "launch_on"]
 
 KERNELS = ("frontend", "clock", "viterbi", "ring", "stream", "roll")
 
@@ -173,6 +173,18 @@ def stage_clocks(name: str):
 
     with using(name, debug):
         yield read
+
+
+@contextlib.contextmanager
+def launch_on(t):
+    """The launch rule of every kernel wrapper: inside the block the device
+    of `t` (the launch's input) is current, and the block gets the handle of
+    that device's current stream.  So a launch on the data of `cuda:1` runs
+    on `cuda:1`'s stream whichever device the caller made current."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -1,12 +1,12 @@
-"""Command line: `python -m xritdemod_tpu_torch.cli {demod,decode,rx}`.
+"""Command line: `python -m xritdemod_tpu_torch.cli {demod,decode,rx,reprocess}`.
 
 The port's counterpart of `xritdemod_tpu/cli.py`: a process-level drop-in for
 the reference's `xritDemodulator` and `xritDecoder` binaries (same config
 files, same ports, same wire formats), plus the fused `rx` mode running the
-whole receive chain in one process.  Every stage runs on the CUDA device
-unless `--device cpu` is given; without a device the command exits with an
-error rather than falling back to the CPU.  (`reprocess`, the fold-parallel
-bulk mode of the JAX package, is not ported yet.)
+whole receive chain in one process, and `reprocess`, which decodes a
+recorded capture fold-parallel into per-VCID channel files.  Every stage
+runs on the CUDA device unless `--device cpu` is given; without a device the
+command exits with an error rather than falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -137,6 +137,52 @@ def _rx(args) -> int:
     return 0
 
 
+def _reprocess(args) -> int:
+    """Bulk-reprocess a recorded capture fold-parallel (no pacing, no
+    sockets): capture file in -> per-VCID channel files out."""
+    import numpy as np
+
+    from xritdemod_tpu_torch.parallel.timeblocks import FoldedCaptureReceiver
+    from xritdemod_tpu_torch.runtime.channel_writer import ChannelWriter
+    from xritdemod_tpu_torch.runtime.config import demod_config_from_file
+
+    cfg, _ = demod_config_from_file(args.config)
+    fmt = args.format
+    if fmt == "auto":
+        fmt = {"c64": "c64", "cfile": "c64", "raw": "c64",
+               "s8": "s8", "u8": "u8"}.get(
+            args.file.rsplit(".", 1)[-1].lower(), "c64")
+    if fmt == "c64":
+        x = np.fromfile(args.file, np.complex64)
+        n = len(x)
+    elif fmt == "s8":
+        # Interleaved signed 8-bit IQ: straight onto the int8 device wire
+        # (utils/cplx.quantize_iq_s8 layout, scale 1/127).
+        x = np.fromfile(args.file, np.int8)
+        n = len(x) // 2
+    elif fmt == "u8":
+        # RTL-SDR style unsigned 8-bit IQ: (v ^ 0x80) as signed is v - 128,
+        # the reference's (i - 128)/127 after the 1/127 dequantization.
+        x = (np.fromfile(args.file, np.uint8) ^ 0x80).view(np.int8)
+        n = len(x) // 2
+    else:
+        raise SystemExit(f"unknown --format {fmt!r}")
+    print(f"xritdemod_tpu_torch reprocess: {n} samples "
+          f"({n / cfg.sample_rate:.1f}s of capture, {fmt}), "
+          f"folds={args.folds}")
+    rx = FoldedCaptureReceiver(cfg, folds=args.folds, block_len=args.block_len,
+                               device=args.device)
+    frames = rx.process(x)
+    writer = ChannelWriter(args.out)
+    per_vcid: dict[int, int] = {}
+    for scid, vcid, ctr, vcdu in frames:
+        writer.write_channel(vcdu, vcid)
+        per_vcid[vcid] = per_vcid.get(vcid, 0) + 1
+    print(f"frames={len(frames)} vcids=" + ",".join(
+        f"{k}:{v}" for k, v in sorted(per_vcid.items())))
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="xritdemod_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -173,6 +219,24 @@ def _parser() -> argparse.ArgumentParser:
     r.add_argument("--dump", action="store_true")
     device(r)
     r.set_defaults(fn=_rx)
+
+    g = sub.add_parser(
+        "reprocess",
+        help="bulk-reprocess a capture fold-parallel -> channel files",
+    )
+    g.add_argument("file", help="IQ capture (complex64, or raw 8-bit IQ "
+                   "with --format s8/u8)")
+    g.add_argument("--config", default="xritdemod.cfg")
+    g.add_argument("--format", default="auto",
+                   choices=["auto", "c64", "s8", "u8"],
+                   help="sample format: c64 = complex64 (GQRX raw), s8 = "
+                   "interleaved signed 8-bit IQ, u8 = unsigned 8-bit IQ "
+                   "(RTL-SDR captures); auto = by file extension")
+    g.add_argument("--folds", type=int, default=128)
+    g.add_argument("--block-len", type=int, default=1 << 17)
+    g.add_argument("--out", default="channels")
+    device(g)
+    g.set_defaults(fn=_reprocess)
     return p
 
 

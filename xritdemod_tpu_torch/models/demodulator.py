@@ -37,7 +37,26 @@ from xritdemod_tpu_torch.ops.frontend_cuda import demod_frontend
 from xritdemod_tpu_torch.ops.stream_cuda import agc_block_kernel, costas_block_kernel
 from xritdemod_tpu_torch.utils.cplx import CF32, from_complex
 
-__all__ = ["DemodConfig", "DemodState", "Demodulator", "quantize_symbols"]
+__all__ = ["DemodConfig", "DemodState", "Demodulator", "quantize_symbols", "slot_budget"]
+
+# The reference's `DemodConfig.clock_max_block` at its default (0, meaning
+# 2^17 post-decimation samples): past it the reference's TPU clock runs a
+# block as equal segments and budgets output slots per segment.
+CLOCK_MAX_BLOCK = 1 << 17
+
+
+def slot_budget(td: int, params: cr_op.ClockRecoveryParams) -> int:
+    """Output slots of a block of `td` post-decimation samples: the
+    reference's `num_slots` (`xritdemod_tpu/models/demodulator.py`), so that
+    outputs and `valid` masks have its shapes.  Past CLOCK_MAX_BLOCK the
+    block counts as the smallest number of equal segments that fit under it,
+    each with its own budget; the port still runs one clock launch a block."""
+    if td <= CLOCK_MAX_BLOCK:
+        return cr_op.max_symbols(td, params)
+    segs = -(-td // CLOCK_MAX_BLOCK)
+    while td % segs:
+        segs += 1
+    return segs * cr_op.max_symbols(td // segs, params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +184,7 @@ class Demodulator:
             gain_mu=config.clock_alpha,
             omega_relative_limit=config.clock_omega_limit,
         )
-        self.num_slots = cr_op.max_symbols(block_len // config.decimation, self._clock)
+        self.num_slots = slot_budget(block_len // config.decimation, self._clock)
         self._hpf_taps = t(
             filters.highpass_taps(
                 1.0, config.circuit_sample_rate, float(config.symbol_rate), 300e3

@@ -9,7 +9,8 @@ Counterpart of `xritdemod_tpu/ops/agc.py::agc_block_exact` (GNU Radio
 
 The JAX package's default form is an associative scan that only approximates
 the clamp; the port keeps the exact recursion everywhere.  This plain form
-loops over time in Python (vectorised over the leading axes) and serves the
+loops over time in Python (vectorised over the leading axes; `ops/scan.py`)
+and serves the
 CPU and the tests; on the GPU the recursion runs inside the fused front end
 (`ops/frontend_cuda.py`) or, on the split path, as the standalone kernel
 `ops/stream_cuda.agc_block_kernel`, whose plain version `agc_block` is.
@@ -21,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from xritdemod_tpu_torch.ops.scan import scan
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = ["AgcParams", "agc_init", "agc_block", "agc_gains"]
@@ -40,13 +42,15 @@ def agc_init(params: AgcParams, leading_shape: tuple = (), device="cpu") -> torc
 def agc_gains(mag_t: torch.Tensor, gain: torch.Tensor, params: AgcParams):
     """Gains applied at each sample of a time-major `(T, ...)` magnitude
     block, and the gain carried out."""
-    g = gain
-    gains = torch.empty_like(mag_t)
-    for n in range(mag_t.shape[0]):
-        gains[n] = g
-        g = g + params.rate * (params.reference - mag_t[n] * g)
+    def step(carry, x):
+        (g,), (m,) = carry, x
+        ng = g + params.rate * (params.reference - m * g)
         if params.max_gain > 0:
-            g = torch.clamp(g, max=params.max_gain)
+            ng = torch.clamp(ng, max=params.max_gain)
+        return (ng,), (g,)
+
+    gains = torch.empty_like(mag_t)
+    (g,) = scan(step, (gain,), (mag_t,), (gains,))
     return gains, g
 
 

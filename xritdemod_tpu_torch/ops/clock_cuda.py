@@ -144,12 +144,12 @@ def clock_recovery_block_kernel_batch_cl(
     outs = [sr, si, nvalid, mu_o, om_o, ii_o, pr_o, pi_o, cr_o, ci_o, slow]
     ptrs = (ctypes.c_void_p * 23)(*[t.data_ptr() for t in ins + outs])
     omega_lim = params.omega * params.omega_relative_limit
-    with torch.cuda.device(dev):
+    with _build.launch_on(xr) as stream:
         err = _lib(interp)(
             ctypes.cast(ptrs, ctypes.c_void_p), T, C, S,
             f32(params.omega), f32(omega_lim),
             f32(params.gain_omega), f32(params.gain_mu),
-            torch.cuda.current_stream().cuda_stream,
+            stream,
         )
     _build.check(err, "xrit_clock" if interp == "mmse" else "xrit_clock_sinc")
     if interp == "mmse":

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from xritdemod_tpu_torch.ops.interp_taps import NSTEPS, mmse_taps_table
+from xritdemod_tpu_torch.ops.scan import scan
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = [
@@ -205,18 +206,12 @@ def clock_recovery_block_batch(
     dev = xr.device
     koff = torch.arange(INTERP_TAPS, device=dev)
 
-    mu, omega, ii = state.mu, state.omega, state.ii.to(torch.int64)
-    p1r, p2r, p3r = state.p.re.unbind(-1)
-    p1i, p2i, p3i = state.p.im.unbind(-1)
-    c1r, c2r, c3r = state.c.re.unbind(-1)
-    c1i, c2i, c3i = state.c.im.unbind(-1)
-    sr = torch.zeros((num_slots, Cn), dtype=torch.float32, device=dev)
-    si = torch.zeros_like(sr)
-    vd = torch.zeros((num_slots, Cn), dtype=torch.bool, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    for j in range(num_slots):
+    def step(carry, _):
+        (mu, omega, ii, p1r, p2r, p3r, p1i, p2i, p3i,
+         c1r, c2r, c3r, c1i, c2i, c3i) = carry
         valid = ii < limit
         idx = torch.clamp(ii, 0, limit - 1)[:, None] + koff       # (C, 8)
         t = taps(mu)                                               # (C, 8)
@@ -241,9 +236,7 @@ def clock_recovery_block_batch(
         new_ii = torch.clamp(ii + adv.to(torch.int64), min=0)
         new_mu = new_mu - adv
 
-        sr[j] = torch.where(valid, p0r, zero)
-        si[j] = torch.where(valid, p0i, zero)
-        vd[j] = valid
+        out = (torch.where(valid, p0r, zero), torch.where(valid, p0i, zero), valid)
         mu = torch.where(valid, new_mu, mu)
         omega = torch.where(valid, new_omega, omega)
         ii = torch.where(valid, new_ii, ii)
@@ -255,7 +248,17 @@ def clock_recovery_block_batch(
                          torch.where(valid, c2r, c3r))
         c1i, c2i, c3i = (torch.where(valid, c0i, c1i), torch.where(valid, c1i, c2i),
                          torch.where(valid, c2i, c3i))
+        return (mu, omega, ii, p1r, p2r, p3r, p1i, p2i, p3i,
+                c1r, c2r, c3r, c1i, c2i, c3i), out
 
+    sr = torch.zeros((num_slots, Cn), dtype=torch.float32, device=dev)
+    si = torch.zeros_like(sr)
+    vd = torch.zeros((num_slots, Cn), dtype=torch.bool, device=dev)
+    (mu, omega, ii, p1r, p2r, p3r, p1i, p2i, p3i, c1r, c2r, c3r, c1i, c2i, c3i) = scan(
+        step,
+        (state.mu, state.omega, state.ii.to(torch.int64), *state.p.re.unbind(-1),
+         *state.p.im.unbind(-1), *state.c.re.unbind(-1), *state.c.im.unbind(-1)),
+        (), (sr, si, vd))
     new_state = ClockRecoveryState(
         mu=mu,
         omega=omega,

@@ -14,7 +14,7 @@ Counterpart of `xritdemod_tpu/ops/costas.py::costas_block` (GNU Radio
         phase += freq + alpha * e;  one +-2pi wrap step
 
 This plain form loops over time in Python (vectorised over the leading
-axes); on the GPU the recursion runs inside the fused front end
+axes; `ops/scan.py`); on the GPU the recursion runs inside the fused front end
 (`ops/frontend_cuda.py`) or, on the split path, as the standalone kernel
 `ops/stream_cuda.costas_block_kernel`, whose plain version `costas_block` is.
 """
@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from xritdemod_tpu_torch.ops.scan import scan
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = [
@@ -76,12 +77,10 @@ def costas_steps(xr_t, xi_t, state: CostasState, params: CostasParams):
     planes and the new state."""
     alpha = float(np.float32(params.alpha))
     beta = float(np.float32(params.beta))
-    phase, freq = state.phase, state.freq
-    yr_t = torch.empty_like(xr_t)
-    yi_t = torch.empty_like(xi_t)
     zero = torch.zeros((), dtype=torch.float32, device=xr_t.device)
-    for n in range(xr_t.shape[0]):
-        xr, xi = xr_t[n], xi_t[n]
+
+    def step(carry, x):
+        (phase, freq), (xr, xi) = carry, x
         c = torch.cos(phase)
         s = torch.sin(phase)
         yr = xr * c + xi * s          # y = x * exp(-i*phase)
@@ -91,8 +90,11 @@ def costas_steps(xr_t, xi_t, state: CostasState, params: CostasParams):
         phase = phase + freq + alpha * err
         phase = phase - torch.where(phase > _TWO_PI, _TWO_PI, zero)
         phase = phase + torch.where(phase < -_TWO_PI, _TWO_PI, zero)
-        yr_t[n] = yr
-        yi_t[n] = yi
+        return (phase, freq), (yr, yi)
+
+    yr_t = torch.empty_like(xr_t)
+    yi_t = torch.empty_like(xi_t)
+    phase, freq = scan(step, (state.phase, state.freq), (xr_t, xi_t), (yr_t, yi_t))
     return yr_t, yi_t, CostasState(phase=phase, freq=freq)
 
 

@@ -129,9 +129,9 @@ def trig_mismatches(lo: float, hi: float, n: int, device) -> int:
         fn.restype = ctypes.c_int
     device = torch.device(device)
     bad = torch.zeros(1, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
+    with _build.launch_on(bad) as stream:
         err = fn(_f32(lo), _f32(hi), int(n), bad.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
+                 stream)
     _build.check(err, "xrit_trig_mismatches")
     return int(bad.item())
 
@@ -180,7 +180,7 @@ def demod_frontend(
     gain_out = torch.empty_like(gain)
     phase_out = torch.empty_like(gain)
     freq_out = torch.empty_like(gain)
-    with torch.cuda.device(dev):
+    with _build.launch_on(xr) as stream:
         err = _lib()(
             xr.data_ptr(), xi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
             hr_out.data_ptr(), hi_out.data_ptr(), yr.data_ptr(), yi.data_ptr(),
@@ -191,7 +191,7 @@ def demod_frontend(
             _f32(agc.rate), _f32(agc.reference), _f32(agc.max_gain),
             _f32(costas.alpha), _f32(costas.beta),
             _f32(costas.freq_min), _f32(costas.freq_max),
-            torch.cuda.current_stream().cuda_stream,
+            stream,
         )
     _build.check(err, "xrit_frontend")
     launches += 1

@@ -111,11 +111,11 @@ def ring_append(ring, fill, new, n_new):
     new, fill, n_new = new.contiguous(), fill.contiguous(), n_new.contiguous()
     fill_out = torch.empty_like(fill)
     ovf = torch.empty_like(fill)
-    with torch.cuda.device(ring.device):
+    with _build.launch_on(ring) as stream:
         err = _fn("xrit_ring_append", 6)(
             ring.data_ptr(), new.data_ptr(), fill.data_ptr(),
             n_new.data_ptr(), fill_out.data_ptr(), ovf.data_ptr(),
-            C, L, new.shape[1], torch.cuda.current_stream().cuda_stream,
+            C, L, new.shape[1], stream,
         )
     _build.check(err, "xrit_ring_append")
     launches_append += 1
@@ -142,11 +142,11 @@ def ring_extract(ring, fill, pos, extract: int):
     out = torch.empty((C, E), dtype=ring.dtype, device=ring.device)
     fill_out = torch.empty_like(fill)
     ok = torch.empty_like(fill)
-    with torch.cuda.device(ring.device):
+    with _build.launch_on(ring) as stream:
         err = _fn("xrit_ring_extract", 7)(
             ring.data_ptr(), fill.data_ptr(), pos.data_ptr(),
             ring_out.data_ptr(), out.data_ptr(), fill_out.data_ptr(), ok.data_ptr(),
-            C, L, E, torch.cuda.current_stream().cuda_stream,
+            C, L, E, stream,
         )
     _build.check(err, "xrit_ring_extract")
     launches_extract += 1

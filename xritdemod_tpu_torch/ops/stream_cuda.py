@@ -93,12 +93,12 @@ def agc_block_kernel(x: CF32, gain: torch.Tensor, params: AgcParams):
     # Every tensor handed to the kernel stays referenced until the launch.
     xr, xi, g_in = x.re.contiguous(), x.im.contiguous(), gain.contiguous()
     yr, yi, g_out = torch.empty_like(xr), torch.empty_like(xi), torch.empty_like(g_in)
-    with torch.cuda.device(xr.device):
+    with _build.launch_on(xr) as stream:
         err = _fn("xrit_agc_block", 6, 3)(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             g_in.data_ptr(), g_out.data_ptr(), C, T,
             _f32(params.rate), _f32(params.reference), _f32(params.max_gain),
-            torch.cuda.current_stream().cuda_stream,
+            stream,
         )
     _build.check(err, "xrit_agc_block")
     launches_agc += 1
@@ -118,14 +118,14 @@ def costas_block_kernel(x: CF32, state: CostasState, params: CostasParams):
     ph_in, fr_in = state.phase.contiguous(), state.freq.contiguous()
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     ph_out, fr_out = torch.empty_like(ph_in), torch.empty_like(fr_in)
-    with torch.cuda.device(xr.device):
+    with _build.launch_on(xr) as stream:
         err = _fn("xrit_costas_block", 8, 4)(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             ph_in.data_ptr(), fr_in.data_ptr(), ph_out.data_ptr(), fr_out.data_ptr(),
             C, T,
             _f32(params.alpha), _f32(params.beta),
             _f32(params.freq_min), _f32(params.freq_max),
-            torch.cuda.current_stream().cuda_stream,
+            stream,
         )
     _build.check(err, "xrit_costas_block")
     launches_costas += 1

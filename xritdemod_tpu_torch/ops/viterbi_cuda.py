@@ -86,10 +86,10 @@ def decode_bits(soft: torch.Tensor, lanes: int | None = None) -> torch.Tensor:
     if NW * T == 0:
         return bits
     dec = torch.empty((T, NW), dtype=torch.int64, device=soft.device)   # decision words
-    with torch.cuda.device(soft.device):
+    with _build.launch_on(soft) as stream:
         err = _lib()(
             soft.data_ptr(), dec.data_ptr(), bits.data_ptr(), NW, T, lanes,
-            torch.cuda.current_stream().cuda_stream,
+            stream,
         )
     _build.check(err, "xrit_viterbi")
     launches += 1

@@ -183,8 +183,9 @@ def _baseline(path: str):
         NW, T = soft.shape[0], soft.shape[1] // 2
         dec = torch.empty((NW, T, 2), dtype=torch.int32, device=soft.device)
         bits = torch.empty((NW, T), dtype=torch.uint8, device=soft.device)
-        _build.check(fn(soft.data_ptr(), dec.data_ptr(), bits.data_ptr(), NW, T,
-                        torch.cuda.current_stream().cuda_stream), "baseline xrit_viterbi")
+        with _build.launch_on(soft) as stream:
+            err = fn(soft.data_ptr(), dec.data_ptr(), bits.data_ptr(), NW, T, stream)
+        _build.check(err, "baseline xrit_viterbi")
         return bits
     return decode
 

@@ -81,10 +81,10 @@ def barrel(x: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
         return barrel_plain(x, amt)
     x, amt = x.contiguous(), amt.contiguous()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with _build.launch_on(x) as stream:
         err = _fn()(
             x.data_ptr(), amt.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-            torch.cuda.current_stream().cuda_stream,
+            stream,
         )
     _build.check(err, "xrit_roll")
     launches += 1
