@@ -5,7 +5,8 @@
     python3 chip_smoke.py --profile  # also: device time of a step by kernel name,
                                      # and which warp of K1, K2, K5, K6 sets their time
 
-Builds the six CUDA libraries from `xritdemod_tpu_torch/csrc/`, holds every
+Builds the six CUDA libraries from `xritdemod_tpu_torch/csrc/` (and the apps'
+host library, `runtime/native.py`, whose failure it reports), holds every
 kernel against its plain PyTorch version on the card at the shapes its path
 gives it (the front end and the clock, both of its interpolators, over two
 chained blocks, each version carrying its own state) and at small ragged
@@ -23,6 +24,16 @@ C = 2048 channels x 131072 samples per block, on synthesised captures:
     -> `quantize_symbols` -> int8 symbols -> one `StreamDecoder` per channel
     for 16 of the channels;
   - the fused receive again with `clock_interp="sinc"`;
+  - `onchip`: the JAX package's own on-chip configuration, the fused
+    receive with `frontend_block_update=8`, `frontend_precision="bf16"` and
+    a bfloat16 ring (K1's slab and bf16 instance, K4 on a bf16 ring), its
+    frames within 1 % of the exact receive's; the split path with
+    `frontend_block_update=8, clock_block_update=16` (K6's slab instance,
+    K2's block update) into `StreamDecoder`s; `block_batch` with the other
+    forms (K1-bk8 in float32, K1-bf16, K2's sinc block update); every new
+    instance against its plain version at its path's shape and on the
+    ragged shapes, at K = 1 K6 and K2 against their exact instances; the
+    times beside the exact forms';
 
 and checks every recovered VCDU bit for bit against what was transmitted.
 Then: the reference's frozen answers (`tests/fixtures/`: the SHA-pinned
@@ -106,6 +117,7 @@ from xritdemod_tpu_torch.parallel.channels import make_channel_mesh
 from xritdemod_tpu_torch.parallel.timeblocks import FoldedCaptureReceiver, TimeBlockDemodulator
 from xritdemod_tpu_torch.runtime.apps import DemodulatorApp, ReceiverApp
 from xritdemod_tpu_torch.runtime.config import demod_config_from_file
+from xritdemod_tpu_torch.runtime import native
 from xritdemod_tpu_torch.runtime.frontends import CFileFrontend
 from xritdemod_tpu_torch.tools import dist_worker, interop_run, long_soak, roll_probe
 from xritdemod_tpu_torch.utils.cplx import (
@@ -855,24 +867,44 @@ def check_roll() -> dict:
 def reset_counts() -> None:
     clock_cuda.out_of_ring_symbols(DEV, reset=True)
     frontend_cuda.launches = 0
+    frontend_cuda.launches_form.clear()
     clock_cuda.launches = 0
     clock_cuda.launches_sinc = 0
+    clock_cuda.launches_bu = 0
+    clock_cuda.launches_bu_sinc = 0
     viterbi_cuda.launches = 0
     ring_cuda.launches_append = 0
     ring_cuda.launches_extract = 0
+    ring_cuda.launches_append_bf16 = 0
+    ring_cuda.launches_extract_bf16 = 0
     stream_cuda.launches_agc = 0
     stream_cuda.launches_costas = 0
+    stream_cuda.launches_costas_slab = 0
     roll_probe.launches = 0
 
 
+# The front end's forms by row name: (block_k, precision).
+FRONTEND_FORMS = {"frontend_bk8_bf16": (8, "bf16"), "frontend_bk8": (8, "highest"),
+                  "frontend_bf16": (0, "bf16")}
+
+
 def read_counts() -> dict:
-    return dict(
+    forms = dict(frontend_cuda.launches_form)
+    out = dict(
         frontend=frontend_cuda.launches, clock=clock_cuda.launches,
         clock_sinc=clock_cuda.launches_sinc, viterbi=viterbi_cuda.launches,
         ring_append=ring_cuda.launches_append, ring_extract=ring_cuda.launches_extract,
         agc_block=stream_cuda.launches_agc, costas_block=stream_cuda.launches_costas,
         roll=roll_probe.launches,
+        clock_bu=clock_cuda.launches_bu, clock_bu_sinc=clock_cuda.launches_bu_sinc,
+        costas_slab=stream_cuda.launches_costas_slab,
+        ring_append_bf16=ring_cuda.launches_append_bf16,
+        ring_extract_bf16=ring_cuda.launches_extract_bf16,
     )
+    for name, key in FRONTEND_FORMS.items():
+        out[name] = forms.pop(key, 0)
+    out["frontend_other_forms"] = sum(forms.values())
+    return out
 
 
 # Which kernels each path must launch, and none of the others.
@@ -917,13 +949,15 @@ def same_state(a, b) -> bool:
 
 def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
               blocks: int = BLOCKS, int8_blocks: int = INT8_BLOCKS, label: str = "main_path",
-              expected: tuple = MAIN_PATH_KERNELS, cl_block: int | None = None):
+              expected: tuple = MAIN_PATH_KERNELS, cl_block: int | None = None,
+              per_block: list | None = None):
     """`blocks` blocks through `step`, then `int8_blocks` through
     `step_int8`, every popped frame held against what was transmitted; the
     path must launch the `expected` kernels and no other.  With `cl_block`,
     that block also goes through `step_cl`, as a transposed `(T, C)` copy
     from a copy of the same state, which must give the same outputs and
-    state as `step`, bit for bit."""
+    state as `step`, bit for bit.  A list passed as `per_block` receives the
+    frames recovered in each block."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     by_counter = [
         {1000 * (s + 1) + i: v[i].tobytes() for i in range(len(v))}
@@ -984,6 +1018,8 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
         failed = fok & ~whole
         cold_partial += int((failed & ~was_locked[:, None]).sum())
         partial += int((failed & was_locked[:, None]).sum())
+        if per_block is not None:
+            per_block.append(int(whole.sum()))
         for c, i in zip(*np.nonzero(whole)):
             s = c % STREAMS
             want = by_counter[s].get(int(ctr[c, i]))
@@ -1030,7 +1066,10 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
     step_ms = float(np.mean(ms[1:blocks]))
     line = dict(
         config=f"DemodConfig.lrit(sample_rate=1250000, clock_interp="
-               f"'{rx._demod.config.clock_interp}') + DecoderConfig(mode='lrit')",
+               f"'{rx._demod.config.clock_interp}', frontend_block_update="
+               f"{rx._demod.config.frontend_block_update}, frontend_precision="
+               f"'{rx._demod.config.frontend_precision}') + DecoderConfig(mode='lrit'), "
+               f"ring_dtype={str(rx.ring_dtype).replace('torch.', '')}",
         channels=CHANNELS, block_len=BLOCK_LEN, blocks=blocks, int8_blocks=int8_blocks,
         k=rx.k, ring_len=rx.ring_len, streams=STREAMS,
         noise_per_component=float(np.hypot(NOISE_STREAM, NOISE_CHANNEL)), esn0_db=esn0_db,
@@ -1079,7 +1118,9 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
 # the split receive
 # --------------------------------------------------------------------------
 
-def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi: str):
+def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi: str,
+               split_cfg: DemodConfig | None = None, label: str = "split_path",
+               expected: tuple = SPLIT_PATH_KERNELS):
     """The capture's blocks through the split-path demodulator at full
     width, the first STREAM_DECODERS channels on through int8 symbols and a
     `StreamDecoder` each.  Held against the fused-path demodulator on the
@@ -1093,22 +1134,29 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
     are held equal, not each block's cut of them: a symbol at a block's end
     may fall into the next block in one path (the running counts then differ
     by one until the other path does the same), and soft symbols are compared
-    on the channels whose running counts agree before and after the block."""
+    on the channels whose running counts agree before and after the block.
+
+    With `split_cfg` (the block updates) the symbols are another function's,
+    so they are not held against the fused path's; every other gate
+    stands."""
     nblocks = BLOCKS + INT8_BLOCKS
     soft_tol = 1e-2
-    split_cfg = DemodConfig.lrit(sample_rate=cfg.sample_rate, frontend_kernel="split")
+    compare = split_cfg is None
+    if compare:
+        split_cfg = DemodConfig.lrit(sample_rate=cfg.sample_rate, frontend_kernel="split")
 
     # The fused path's symbols first, parked on the host, so that the split
     # path below runs alone between the reset and the read of the counts.
-    fused = Demodulator(cfg, BLOCK_LEN)
-    fst = fused.init_state_batch(CHANNELS)
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     fused_out = []
-    for b in range(nblocks):
-        soft, valid, fst = fused.block_batch(make_block(base, delays, b, gen), fst)
-        fused_out.append((soft.cpu(), valid.sum(-1).cpu()))
-    del fused, fst, soft, valid
-    torch.cuda.empty_cache()
+    if compare:
+        fused = Demodulator(cfg, BLOCK_LEN)
+        fst = fused.init_state_batch(CHANNELS)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+        for b in range(nblocks):
+            soft, valid, fst = fused.block_batch(make_block(base, delays, b, gen), fst)
+            fused_out.append((soft.cpu(), valid.sum(-1).cpu()))
+        del fused, fst, soft, valid
+        torch.cuda.empty_cache()
 
     by_counter = [
         {1000 * (s + 1) + i: v[i].tobytes() for i in range(len(v))}
@@ -1151,22 +1199,23 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
             steady_ms += a.elapsed_time(e)
         del x
         n = valid.sum(-1)
-        fsoft, fn = fused_out[b]
-        fn = fn.to(DEV)
-        count_diff += int((n != fn).sum())
-        aligned = (lead == 0) & (n == fn)
-        lead += n - fn
-        max_lead = max(max_lead, int(lead.abs().max()))
-        shifted += int((~aligned).sum())
-        d = (soft - fsoft.to(DEV)).abs()[aligned]
-        soft_err.append(float(d.max()))
-        soft_far.append(float((d > 1e-5).float().mean()))
-        del d
+        if compare:
+            fsoft, fn = fused_out[b]
+            fn = fn.to(DEV)
+            count_diff += int((n != fn).sum())
+            aligned = (lead == 0) & (n == fn)
+            lead += n - fn
+            max_lead = max(max_lead, int(lead.abs().max()))
+            shifted += int((~aligned).sum())
+            d = (soft - fsoft.to(DEV)).abs()[aligned]
+            soft_err.append(float(d.max()))
+            soft_far.append(float((d > 1e-5).float().mean()))
+            del d
         q = quantize_symbols(soft[:STREAM_DECODERS]).cpu().numpy()
-        n_host = n[:STREAM_DECODERS].cpu().numpy()
+        v_host = valid[:STREAM_DECODERS].cpu().numpy()
         t0 = time.perf_counter()
         for c, sd in enumerate(decoders):
-            collect(c, sd.push(q[c, : n_host[c]]))
+            collect(c, sd.push(q[c][v_host[c]]))
         decode_s += time.perf_counter() - t0
     t0 = time.perf_counter()
     for c, sd in enumerate(decoders):
@@ -1209,9 +1258,12 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
         interior += sum(lo <= ctr <= hi for ctr in diff)
     unlocked = sum(not sd._locked for sd in decoders)
     steady = steady_ms / (nblocks - 1)
-    say("split_path", card=smi,
-        config="DemodConfig.lrit(sample_rate=1250000, frontend_kernel='split') -> "
-               "quantize_symbols -> StreamDecoder(DecoderConfig(mode='lrit'))",
+    c = split_cfg
+    say(label, card=smi,
+        config=f"DemodConfig.lrit(sample_rate=1250000, frontend_kernel='split', "
+               f"frontend_block_update={c.frontend_block_update}, clock_block_update="
+               f"{c.clock_block_update}) -> quantize_symbols -> "
+               "StreamDecoder(DecoderConfig(mode='lrit'))",
         channels=CHANNELS, block_len=BLOCK_LEN, blocks=nblocks,
         first_block_ms=first_ms, steady_ms_per_block=steady,
         msamples_per_s=CHANNELS * BLOCK_LEN / (steady * 1e-3) / 1e6,
@@ -1223,7 +1275,8 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
         largest_running_count_difference=max_lead,
         channels_whose_running_counts_differ_at_the_end=int((lead != 0).sum()),
         soft_tolerance=f"atol {soft_tol} against the fused path, on channels whose "
-                       "running symbol counts agree",
+                       "running symbol counts agree" if compare else "not compared: "
+                       "the block updates compute another function than the fused path",
         soft_max_abs_diff_per_block=soft_err, soft_share_beyond_1e_5_per_block=soft_far,
         stream_decoders=STREAM_DECODERS, frames_per_block=decoders[0].config.frames_per_block,
         warm_up_seconds=warm_s, decode_seconds=decode_s, batches_by_size=batch_sizes,
@@ -1234,31 +1287,466 @@ def split_path(cfg: DemodConfig, base: CF32, delays, vcdus, fused_delivered, smi
             most_before_the_common_span_in_a_stream=edge_start,
             most_after_it_in_a_stream=edge_end, inside_it_in_all=interior),
         resyncs=[sd.stats.resyncs for sd in decoders], streams_unlocked_at_the_end=unlocked)
-    if max_lead > 1 or shifted > CHANNELS * nblocks // 1000:
+    what = label.replace("_", " ")
+    if compare and (max_lead > 1 or shifted > CHANNELS * nblocks // 1000):
         fail(f"split path: symbol counts stray from the fused path's: running difference "
              f"up to {max_lead}, {shifted} channel-blocks out of step")
-    if not max(soft_err) <= soft_tol:
+    if compare and not max(soft_err) <= soft_tol:
         fail(f"split path: soft symbols differ from the fused path's by {max(soft_err)}")
     if wrong:
-        fail(f"split path: {wrong} delivered VCDUs differ from what was transmitted")
+        fail(f"{what}: {wrong} delivered VCDUs differ from what was transmitted")
     if partial:
-        fail(f"split path: {partial} frames past a stream's first passed sync with a "
+        fail(f"{what}: {partial} frames past a stream's first passed sync with a "
              "failed Reed-Solomon block")
     if cold_wrong + cold_partial > 1:
-        fail(f"split path: {cold_wrong} complemented and {cold_partial} partly decoded "
+        fail(f"{what}: {cold_wrong} complemented and {cold_partial} partly decoded "
              "first frames, more than 1")
     if min(frames) < 8:
-        fail(f"split path: a stream delivered only {min(frames)} frames")
+        fail(f"{what}: a stream delivered only {min(frames)} frames")
     if interior or edge_start > 1 or edge_end > 2:
-        fail(f"split path: delivered counters differ from the fused receive's: at most "
+        fail(f"{what}: delivered counters differ from the fused receive's: at most "
              f"{edge_start} before, {interior} inside, at most {edge_end} after the "
              "span both delivered")
     if unlocked:
-        fail(f"split path: {unlocked} streams ended unlocked")
+        fail(f"{what}: {unlocked} streams ended unlocked")
     if out_of_ring:
-        fail(f"split path: the clock kernel read {out_of_ring} symbols outside its ring")
-    check_counts("split path", counts, SPLIT_PATH_KERNELS)
+        fail(f"{what}: the clock kernel read {out_of_ring} symbols outside its ring")
+    check_counts(what, counts, expected)
     return counts, demod, state, steady
+
+# --------------------------------------------------------------------------
+# the JAX package's on-chip configuration: the block-update and bf16 forms
+# --------------------------------------------------------------------------
+
+ONCHIP_BLOCKS = 5          # `step`: one warm-up and four steady blocks; then one `step_int8`
+ONCHIP_K = 8               # frontend_block_update, the JAX package's on-chip K
+ONCHIP_CLOCK_K = 16        # clock_block_update of the split path's run
+ONCHIP_FUSED_KERNELS = ("frontend_bk8_bf16", "clock", "viterbi", "ring_append_bf16",
+                        "ring_extract_bf16")
+ONCHIP_SPLIT_KERNELS = ("agc_block", "costas_slab", "clock_bu", "viterbi")
+ONCHIP_FORMS_KERNELS = ("frontend_bk8", "frontend_bf16", "clock", "clock_bu_sinc")
+ONCHIP_FORMS_BLOCKS = 2
+RAGGED_K_FRONT = (1, 4, 8, 16, 64)     # K1's and K6's slabs on the ragged shapes
+RAGGED_K_CLOCK = (1, 4, 16)            # K2's chunks
+
+
+def forms_path(cfg: DemodConfig, base: CF32, delays) -> dict:
+    """The forms a user may select beside the on-chip configuration, through
+    `Demodulator.block_batch` on the fused path: `frontend_block_update=8`
+    in float32 with the sinc block-update clock, and `frontend_precision=
+    "bf16"` with the exact front-end recursions, ONCHIP_FORMS_BLOCKS blocks
+    each from a cold start.  Every channel's symbol count must lie within the
+    clock's range of the block's length, every symbol finite."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    blocks = [make_block(base, delays, b, gen) for b in range(ONCHIP_FORMS_BLOCKS)]
+    variants = {
+        "bk8_f32_sinc_bu16": dataclasses.replace(
+            cfg, frontend_block_update=ONCHIP_K, clock_block_update=ONCHIP_CLOCK_K,
+            clock_interp="sinc"),
+        "bf16": dataclasses.replace(cfg, frontend_precision="bf16"),
+    }
+    lo = BLOCK_LEN / cfg.sps * (1 - cfg.clock_omega_limit) - 8
+    hi = BLOCK_LEN / cfg.sps * (1 + cfg.clock_omega_limit) + 8
+    out = {}
+    reset_counts()
+    for name, c in variants.items():
+        demod = Demodulator(c, BLOCK_LEN)
+        st = demod.init_state_batch(CHANNELS)
+        counts = []
+        for x in blocks:
+            soft, valid, st = demod.block_batch(x, st)
+            n = valid.sum(-1)
+            counts.append([int(n.min()), int(n.max())])
+            if not bool(torch.isfinite(soft).all()):
+                fail(f"onchip forms ({name}): a symbol is not finite")
+        if counts[-1][0] < lo or counts[-1][1] > hi:
+            fail(f"onchip forms ({name}): symbol counts {counts[-1]} outside [{lo}, {hi}]")
+        out[name] = dict(symbols_per_channel_min_max=counts)
+    out["launches"] = read_counts()
+    check_counts("onchip forms path", out["launches"], ONCHIP_FORMS_KERNELS)
+    return out
+
+
+def ragged_len(T: int, K: int) -> int:
+    """The longest multiple of K not past T (slab forms need whole slabs)."""
+    return T - T % K
+
+
+def check_onchip_ragged(demod: Demodulator) -> dict:
+    """The new instances against their plain versions on RAGGED_SHAPES (each
+    block length cut to a whole number of slabs for K1 and K6), two chained
+    blocks, each version with its own state: K1 with the slabs of
+    RAGGED_K_FRONT (float32, and bf16 at K = 8) and bf16 at K = 0; K6 with
+    RAGGED_K_FRONT; K2's block update at RAGGED_K_CLOCK, both interpolators;
+    the bf16 rings.  At K = 1 K6 and K2 must equal their exact instances
+    bit for bit."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
+    fe = (demod._agc, demod._rrc_taps, demod._costas)
+    out = {"frontend_forms": 0.0, "costas_slab": 0.0, "clock_bu": 0.0, "clock_bu_sinc": 0.0,
+           "k1_equal_to_exact": True}
+    forms = [(bk, "highest") for bk in RAGGED_K_FRONT] + [(ONCHIP_K, "bf16"), (0, "bf16")]
+    for C, T in RAGGED_SHAPES:
+        st = demod.init_state_batch(C)
+        for bk, prec in forms:
+            Tk = ragged_len(T, max(bk, 1))
+            if Tk < max(bk, 1):
+                continue
+            kfe = pfe = (st.agc_gain + rnd(C).abs(), CF32(rnd(C, 62), rnd(C, 62)), st.costas)
+            for _ in range(2):
+                x = ragged_signal(Tk, C, rnd)
+                k = frontend_cuda.demod_frontend(x, *kfe, *fe, block_k=bk, precision=prec)
+                p = frontend_cuda.demod_frontend_plain(x, *pfe, *fe, block_k=bk, precision=prec)
+                out["frontend_forms"] = max(out["frontend_forms"], *frontend_errs(k, p))
+                kfe, pfe = k[1:], p[1:]
+        for K in RAGGED_K_FRONT:
+            Tk = ragged_len(T, K)
+            if Tk < K:
+                continue
+            kc = pc = costas_op.CostasState(rnd(C, scale=2.0), rnd(C, scale=0.01))
+            for _ in range(2):
+                x = ragged_signal(Tk, C, rnd)
+                xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+                ky, kc2 = stream_cuda.costas_block_kernel(xc, kc, demod._costas, K)
+                py, pc2 = costas_op.costas_block_update(xc, pc, demod._costas, K)
+                out["costas_slab"] = max(out["costas_slab"], max_err(ky.re, py.re),
+                                         max_err(ky.im, py.im), max_err(kc2.phase, pc2.phase),
+                                         max_err(kc2.freq, pc2.freq))
+                if K == 1:
+                    ey, ec = stream_cuda.costas_block_kernel(xc, kc, demod._costas)
+                    out["k1_equal_to_exact"] &= bool(
+                        torch.equal(ey.re, ky.re) and torch.equal(ey.im, ky.im)
+                        and torch.equal(ec.phase, kc2.phase) and torch.equal(ec.freq, kc2.freq))
+                kc, pc = kc2, pc2
+        S = T // 4 + 20
+        for interp, key in (("mmse", "clock_bu"), ("sinc", "clock_bu_sinc")):
+            for K in RAGGED_K_CLOCK:
+                kc = pc = st.clock
+                for _ in range(2):
+                    y = ragged_signal(T, C, rnd)
+                    k = clock_cuda.clock_recovery_block_kernel_batch_cl(
+                        y, kc, demod._clock, S, interp, K)
+                    p = clock_cuda.clock_recovery_block_plain_cl(y, pc, demod._clock, S, interp, K)
+                    out[key] = max(out[key], *clock_errs(k, p, f"ragged {key} K={K} {C} x {T}"))
+                    if K == 1:
+                        e = clock_cuda.clock_recovery_block_kernel_batch_cl(
+                            y, kc, demod._clock, S, interp)
+                        out["k1_equal_to_exact"] &= bool(
+                            torch.equal(e[0].re, k[0].re) and torch.equal(e[1], k[1])
+                            and same_state(e[2], k[2]))
+                    kc, pc = k[2], p[2]
+    Cr, L, Sr, E = 5, 300, 77, 64
+    fill = torch.tensor([0, 10, 150, 223, 290], dtype=torch.int32, device=DEV)
+    ring = torch.where(torch.arange(L, device=DEV)[None, :] < fill[:, None], rnd(Cr, L),
+                       0.0).to(torch.bfloat16)
+    new = rnd(Cr, Sr)
+    n_new = torch.tensor([77, 0, 33, 77, 5], dtype=torch.int32, device=DEV)
+    ka = ring_cuda.ring_append(ring.clone(), fill, new, n_new)
+    pa = ring_cuda.ring_append_plain(ring.clone(), fill, new, n_new)
+    pos = torch.tensor([3, 0, 17, 40, 2], dtype=torch.int32, device=DEV)
+    ke = ring_cuda.ring_extract(ka[0], ka[1], pos, E)
+    pe = ring_cuda.ring_extract_plain(pa[0], pa[1], pos, E)
+    if not all(torch.equal(a, b) for a, b in zip(ka + ke, pa + pe)):
+        fail("onchip: the ragged bf16 ring differs from its plain version")
+    out["ring_bf16"] = 0.0
+    worst = max(v for k, v in out.items() if k != "k1_equal_to_exact")
+    if not worst <= 0.0 or not out["k1_equal_to_exact"]:
+        fail(f"onchip ragged shapes: a new instance disagrees with its plain version or, at "
+             f"K = 1, with its exact instance: {out}")
+    return out
+
+
+def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> list[dict]:
+    """Each new instance against its plain version at its path's shapes
+    (C = 2048, T = 131072), over the capture's first two blocks chained, each
+    version carrying its own state; `exact` holds the exact instances' rows
+    of `check_kernels`, whose times stand beside the new ones'.  K1's forms
+    through the channels-last entry (bk8-bf16 is (a)'s, bk8 and bf16 on the
+    same inputs); K2's block update at K = 16 through the channels-last entry
+    on K1-bk8-bf16's output ((a)'s shape) and through the `(C, T)` entry on
+    K6-bk8's ((b)'s shape; sinc on the same); K6-bk8 on the split path's
+    filter output (K5, then the RRC); the bf16 rings at (a)'s ring length.
+    At the path's shape K6 and K2 at K = 1 equal their exact instances."""
+    demod = rx._demod
+    C, T = x0.re.shape
+    st = demod.init_state_batch(C)
+    fe = (demod._agc, demod._rrc_taps, demod._costas)
+    N = int(demod._rrc_taps.shape[0])
+    S = demod.num_slots
+    rows = []
+    xT = [CF32(x.re.t().contiguous(), x.im.t().contiguous()) for x in (x0, x1)]
+    fe_bound = bound(4 * (4 * T * C + 4 * C * (N - 1) + 6 * C), T * C * (4 * N + 40))
+    y_bk8_bf16 = None
+    for name, (bk, prec) in FRONTEND_FORMS.items():
+        kst = pst = (st.agc_gain, st.rrc_hist, st.costas)
+        errs, plain_ms = [], None
+        for b, x in enumerate(xT):
+            k = frontend_cuda.demod_frontend(x, *kst, *fe, block_k=bk, precision=prec)
+            torch.cuda.synchronize()
+            p, pms = once_ms(lambda: frontend_cuda.demod_frontend_plain(
+                x, *pst, *fe, block_k=bk, precision=prec))
+            errs += frontend_errs(k, p)
+            if b == 1:
+                args = (x, *kst, *fe)
+                ms = time_ms(lambda: frontend_cuda.demod_frontend(
+                    *args, block_k=bk, precision=prec), 3)
+                if PROFILE and prec == "highest":
+                    stage_clocks("frontend", frontend_cuda.roles(bk), lambda: frontend_cuda.
+                                 demod_frontend(*args, block_k=bk, precision=prec), name)
+                plain_ms = pms
+            if name == "frontend_bk8_bf16":
+                y_bk8_bf16 = (y_bk8_bf16 or []) + [p[0]]
+            kst, pst = k[1:], p[1:]
+        if not max(errs) <= 0.0:
+            fail(f"onchip: {name} disagrees with its plain version: {errs}")
+        rows.append(dict(
+            name=name, route="cuda", source="xritdemod_tpu_torch/csrc/frontend.cu",
+            replaces="xritdemod_tpu/ops/frontend_pallas.py:335",
+            form=f"block_k={bk}, precision='{prec}' (frontend_pallas.py:87-150, 166-225)",
+            max_abs_err=max(errs), tolerance="exact, two chained blocks", ms=ms,
+            exact_ms=exact["frontend"]["ms"], plain_ms=plain_ms, bound_ms=fe_bound[0],
+            bound_by=fe_bound[1], library_ms=None))
+        del k, p, kst, pst
+
+    def clock_row(name, ys, entry, interp, chunk, plain_entry, form):
+        kc = pc = st.clock
+        errs = []
+        for b, y in enumerate(ys):
+            k = entry(y, kc, demod._clock, S, interp, chunk)
+            torch.cuda.synchronize()
+            p, pms = once_ms(lambda: plain_entry(y, pc, demod._clock, S, interp, chunk))
+            errs += clock_errs(k, p, f"onchip: {name}, block {b}")
+            if b == 1:
+                args = (y, kc, demod._clock, S, interp, chunk)
+                ms = time_ms(lambda: entry(*args), 3)
+                e = entry(y, kc, demod._clock, S, interp, 1)
+                one = entry(y, kc, demod._clock, S, interp)
+                if not (torch.equal(e[0].re, one[0].re) and torch.equal(e[1], one[1])
+                        and same_state(e[2], one[2])):
+                    fail(f"onchip: {name} at K = 1 differs from the exact instance")
+                nsym = int(k[1].sum())
+            kc, pc = k[2], p[2]
+        if not max(errs) <= 0.0:
+            fail(f"onchip: {name} disagrees with its plain version: {errs}")
+        per = 70.0 if interp == "mmse" else 190.0
+        bms, by = bound(4 * (2 * (T + NTAIL) * C + 2 * C * S + 30 * C) + C * S, nsym * per)
+        return dict(name=name, route="cuda", source="xritdemod_tpu_torch/csrc/clock.cu",
+                    replaces="xritdemod_tpu/ops/clock_pallas.py:539", form=form,
+                    max_abs_err=max(errs), tolerance="exact, equal valid masks and positions, "
+                    "two chained blocks; K = 1 equal to the exact instance", ms=ms,
+                    exact_ms=exact["clock" if interp == "mmse" else "clock_sinc"]["ms"],
+                    plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None, symbols=nsym)
+
+    cl_row = clock_row("clock_bu", y_bk8_bf16, clock_cuda.clock_recovery_block_kernel_batch_cl,
+                       "mmse", ONCHIP_CLOCK_K, clock_cuda.clock_recovery_block_plain_cl,
+                       f"block_update=True, chunk={ONCHIP_CLOCK_K}, mmse, channels-last "
+                       "(clock_pallas.py:232-335)")
+    del y_bk8_bf16
+
+    # K6-bk8 on the split path's filter output: K5, then the RRC.
+    g, h = st.agc_gain, st.rrc_hist
+    fir_out = []
+    for x in (x0, x1):
+        a, g = stream_cuda.agc_block_kernel(x, g, demod._agc)
+        f, h = fir.fir_block(a, demod._rrc_taps, h)
+        fir_out.append(f)
+        del a
+    kc = pc = st.costas
+    errs, ys = [], []
+    for b, f in enumerate(fir_out):
+        ky, kc2 = stream_cuda.costas_block_kernel(f, kc, demod._costas, ONCHIP_K)
+        torch.cuda.synchronize()
+        (py, pc2), pms = once_ms(lambda: costas_op.costas_block_update(
+            f, pc, demod._costas, ONCHIP_K))
+        errs += [max_err(ky.re, py.re), max_err(ky.im, py.im), max_err(kc2.phase, pc2.phase),
+                 max_err(kc2.freq, pc2.freq)]
+        if b == 1:
+            args = (f, kc, demod._costas)
+            ms = time_ms(lambda: stream_cuda.costas_block_kernel(*args, ONCHIP_K), 3)
+            if PROFILE:
+                stage_clocks("stream", stream_cuda.ROLES["costas_slab"],
+                             lambda: stream_cuda.costas_block_kernel(*args, ONCHIP_K),
+                             "costas_slab")
+            e1 = stream_cuda.costas_block_kernel(*args, 1)
+            ex = stream_cuda.costas_block_kernel(*args)
+            if not (torch.equal(e1[0].re, ex[0].re) and torch.equal(e1[0].im, ex[0].im)
+                    and same_state(e1[1], ex[1])):
+                fail("onchip: costas_slab at K = 1 differs from the exact instance")
+            plain_ms = pms
+        ys.append(py)
+        kc, pc = kc2, pc2
+    if not max(errs) <= 0.0:
+        fail(f"onchip: costas_slab disagrees with its plain version: {errs}")
+    bms, by = bound(4 * (4 * T * C + 4 * C), T * C * 40.0)
+    rows.append(dict(
+        name="costas_slab", route="cuda", source="xritdemod_tpu_torch/csrc/stream.cu",
+        replaces="xritdemod_tpu/ops/stream_pallas.py:187",
+        form=f"the slab update, chunk={ONCHIP_K} (costas.py:114-186; the fused kernel's "
+             "block_k, frontend_pallas.py:193-225), (C, T)",
+        max_abs_err=max(errs), tolerance="exact, phase and freq included, two chained "
+        "blocks; K = 1 equal to the exact instance", ms=ms,
+        exact_ms=exact["costas_block"]["ms"], plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None))
+    del fir_out
+    rows.append(cl_row)
+    # The (C, T) entry's plain version.
+    def ct_plain(y, st_, prm, slots, interp, chunk):
+        return clock_recovery.clock_recovery_block_update_batch(y, st_, prm, slots, chunk, interp)
+
+    rows.append(clock_row(
+        "clock_bu_sinc", ys, clock_cuda.clock_recovery_block_kernel_batch, "sinc",
+        ONCHIP_CLOCK_K, ct_plain,
+        f"block_update=True, chunk={ONCHIP_CLOCK_K}, interp_mode='sinc', (C, T)"))
+    ct_mmse = clock_row(
+        "clock_bu", ys, clock_cuda.clock_recovery_block_kernel_batch, "mmse", ONCHIP_CLOCK_K,
+        ct_plain, "(C, T)")
+    cl_row["split_shape"] = dict(entry="(C, T)", max_abs_err=ct_mmse["max_abs_err"],
+                                 ms=ct_mmse["ms"], symbols=ct_mmse["symbols"])
+    del ys
+
+    # The bf16 rings at (a)'s length: the clock's symbols onto rings with
+    # random fills, a few set to overflow; then pops at random positions.
+    gcpu = torch.Generator(device="cpu").manual_seed(SEED)
+    L = rx.ring_len
+    ks, kv, _ = clock_cuda.clock_recovery_block_kernel_batch_cl(
+        xT[0], st.clock, demod._clock, S)
+    n_new = kv.sum(-1).to(torch.int32)
+    fill = torch.randint(0, L - S, (C,), generator=gcpu).to(torch.int32)
+    fill[::97] = L - 100
+    fill = fill.to(DEV)
+    ring0 = torch.randn((C, L), generator=gcpu).to(DEV)
+    ring0 = torch.where(torch.arange(L, device=DEV)[None, :] < fill[:, None], ring0,
+                        0.0).to(torch.bfloat16)
+    kr, kf, ko = ring_cuda.ring_append(ring0.clone(), fill, ks.re, n_new)
+    (pr, pf, po), plain_ms = once_ms(
+        lambda: ring_cuda.ring_append_plain(ring0.clone(), fill, ks.re, n_new))
+    if not (torch.equal(kr, pr) and torch.equal(kf, pf) and torch.equal(ko, po)):
+        fail("onchip: ring_append on a bf16 ring differs from its plain version")
+    scratch = ring0.clone()
+    ms = time_ms(lambda: ring_cuda.ring_append(scratch, fill, ks.re, n_new), 10)
+    moved = int(n_new[~ko].sum())
+    bms, by = bound(6 * moved + 16 * C, 0.0)
+    rows.append(dict(
+        name="ring_append_bf16", route="cuda", source="xritdemod_tpu_torch/csrc/ring.cu",
+        replaces="xritdemod_tpu/ops/ring_pallas.py:114", form="bfloat16 ring (ring_pallas.py:56-95)",
+        max_abs_err=0.0, tolerance="exact", ms=ms, exact_ms=exact["ring_append"]["ms"],
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+    E = K.CODED_FRAME_SIZE
+    kf[1::61] = E // 2
+    kr[1::61, E // 2:] = 0
+    pos = torch.randint(0, E, (C,), generator=gcpu).to(torch.int32).to(DEV)
+    kout = ring_cuda.ring_extract(kr, kf, pos, E)
+    pout, plain_ms = once_ms(lambda: ring_cuda.ring_extract_plain(kr, kf, pos, E))
+    if not all(torch.equal(a, b) for a, b in zip(kout, pout)):
+        fail("onchip: ring_extract on a bf16 ring differs from its plain version")
+    if bool(kout[3].all()) or not bool(kout[3].any()):
+        fail("onchip: ring_extract check: wanted both ok and not-ok channels")
+    ms = time_ms(lambda: ring_cuda.ring_extract(kr, kf, pos, E), 10)
+    okc = kout[3]
+    kept = int(kout[1][okc].sum())
+    bms, by = bound(2 * (kept + int(kf[okc].sum())) + 6 * C * E + 16 * C, 0.0)
+    rows.append(dict(
+        name="ring_extract_bf16", route="cuda", source="xritdemod_tpu_torch/csrc/ring.cu",
+        replaces="xritdemod_tpu/ops/ring_pallas.py:145", form="bfloat16 ring (ring_pallas.py:56-95)",
+        max_abs_err=0.0, tolerance="exact", ms=ms, exact_ms=exact["ring_extract"]["ms"],
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
+    return rows
+
+
+def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdus,
+                 esn0_db: float, main: dict, split: dict, exact_rows: list, smi: str):
+    """The JAX package's own configuration on its chip, at full width, and
+    the other block-update and bf16 forms, on the same captures as
+    `main_path`:
+
+    (a) `FusedReceiver(DemodConfig.lrit(sample_rate=1_250_000,
+        frontend_block_update=8, frontend_precision="bf16"), ...,
+        ring_dtype="bfloat16")` at C = 2048 x 131072: a warm-up and four
+        steady `step`s and one `step_int8` under `main_path`'s gates; its
+        delivered frames within 1 % of `main_path`'s exact receive on the
+        same blocks.
+    (b) The split path with `frontend_block_update=8, clock_block_update=16`
+        (K5, cuDNN RRC, K6-bk8, K2-bu16) at C = 2048, 16 channels on through
+        `StreamDecoder`s, under `split_path`'s gates.
+    (forms) `block_batch` with the forms no run above selects (K1-bk8 in
+        float32 with the sinc block-update clock; K1-bf16).
+    (c) Every new instance against its plain version at its path's shape
+        and on RAGGED_SHAPES (`check_onchip_kernels`, `check_onchip_ragged`).
+    (d) The times beside the exact forms': ms per steady step and the
+        device's busy ms of (a) against `main_path`'s, ms per block of (b)
+        against `split_path`'s, each new instance's kernel ms against its
+        exact instance's.
+
+    `main` holds `main_path`'s receiver, state, step times and frames per
+    block; `split` `split_path`'s steady ms.  Returns the new rows of the
+    kernels line, and the launches of each path by name."""
+    t0 = time.perf_counter()
+    ocfg = dataclasses.replace(cfg, frontend_block_update=ONCHIP_K, frontend_precision="bf16")
+    rx = FusedReceiver(ocfg, dcfg, channels=CHANNELS, block_len=BLOCK_LEN,
+                       ring_dtype="bfloat16")
+    per_block: list = []
+    fused_counts, ostate, oms, delivered = main_path(
+        rx, base, delays, vcdus, esn0_db, blocks=ONCHIP_BLOCKS, int8_blocks=INT8_BLOCKS,
+        label="onchip_fused", expected=ONCHIP_FUSED_KERNELS, per_block=per_block)
+    exact_frames = sum(main["per_block"][:ONCHIP_BLOCKS])
+    got = sum(per_block[:ONCHIP_BLOCKS])
+    if abs(got - exact_frames) > 0.01 * exact_frames:
+        fail(f"onchip fused: {got} frames in the first {ONCHIP_BLOCKS} blocks where the exact "
+             f"receive delivered {exact_frames}")
+    # Device-busy ms of one steady step of each receiver, each on the
+    # capture's block after the last it took, its state carried on.
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    xo = make_block(base, delays, ONCHIP_BLOCKS + INT8_BLOCKS, gen)
+    xm = make_block(base, delays, BLOCKS + INT8_BLOCKS, gen)
+    mst = clone_state(main["state"])
+    busy = dict(
+        onchip=device_busy_ms(lambda: rx.step(xo, ostate)),
+        exact=device_busy_ms(lambda: main["rx"].step(xm, mst)))
+    del xo, xm, rx, ostate, mst
+    torch.cuda.empty_cache()
+    a_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    bcfg = DemodConfig.lrit(sample_rate=cfg.sample_rate, frontend_kernel="split",
+                            frontend_block_update=ONCHIP_K, clock_block_update=ONCHIP_CLOCK_K)
+    split_counts, demod, dstate, bms = split_path(
+        cfg, base, delays, vcdus, main["delivered"], smi, split_cfg=bcfg,
+        label="onchip_split", expected=ONCHIP_SPLIT_KERNELS)
+    del demod, dstate
+    torch.cuda.empty_cache()
+    forms = forms_path(cfg, base, delays)
+    b_s = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    x0, x1 = (make_block(base, delays, b, gen) for b in (0, 1))
+    exact = {r["name"]: r for r in exact_rows}
+    rows = check_onchip_kernels(main["rx"], x0, x1, exact)
+    del x0, x1
+    torch.cuda.empty_cache()
+    ragged = check_onchip_ragged(main["rx"]._demod)
+    c_s = time.perf_counter() - t2
+
+    steady = float(np.mean(oms[1:ONCHIP_BLOCKS]))
+    exact_steady = float(np.mean(main["ms"][1:ONCHIP_BLOCKS]))
+    say("onchip", card=smi,
+        fused=dict(config="DemodConfig.lrit(sample_rate=1250000, frontend_block_update=8, "
+                          "frontend_precision='bf16'), ring_dtype='bfloat16'",
+                   frames_first_blocks=got, exact_frames_first_blocks=exact_frames,
+                   frames_per_block=per_block, exact_frames_per_block=main["per_block"],
+                   steady_ms_per_step=steady, exact_steady_ms_per_step=exact_steady,
+                   steady_blocks=list(range(1, ONCHIP_BLOCKS)),
+                   device_busy_ms_one_step=busy, seconds=a_s),
+        split=dict(steady_ms_per_block=bms, exact_steady_ms_per_block=split["ms"],
+                   launches=split_counts),
+        forms=forms, forms_and_split_seconds=b_s,
+        kernels=[dict(name=r["name"], ms=r["ms"], exact_ms=r["exact_ms"],
+                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                      max_abs_err=r["max_abs_err"]) for r in rows],
+        ragged_shapes_max_abs_err=ragged, checks_seconds=c_s,
+        seconds=time.perf_counter() - t0)
+    return rows, dict(fused=fused_counts, split=split_counts, forms=forms["launches"])
+
 
 # --------------------------------------------------------------------------
 # the reference's frozen answers, the serial receive, decode_multi
@@ -1656,6 +2144,7 @@ def apps_phase(smi: str, prep: dict) -> dict:
     for path in caps.values():
         os.unlink(path)
     line = dict(card=smi, interop=interop, rx=rx, launches=counts, batch_pad=pad,
+                sample_ring=dict(native=native.available(), error=native.last_error()),
                 first_block_kernels_max_abs_err=checked, first_block_kernels_s=check_s,
                 tolerance="kernels: atol 1e-4, equal symbol counts and positions")
     say("apps", **line)
@@ -2201,17 +2690,26 @@ def main() -> None:
     for name in _build.KERNELS:
         _build.load(name)
     k3 = kernel_frames(built["log"], "_Z14viterbi_kernel")
-    # K2 by interpolator (0 mmse, 1 sinc).  The sinc instance's stack frame
-    # is `sinf`'s large-argument path (a never-taken branch): no spill.
+    # K2 by instance (0 mmse, 1 sinc, 2 and 3 their block updates).  The
+    # sinc instances' stack frame is `sinf`'s large-argument path (a
+    # never-taken branch): no spill.
     k2 = kernel_frames(built["log"], "_Z12clock_kernel")
+    # The host library of the apps' sample ring, built here, in this
+    # process: the apps line reports which ring they got, and why.
+    t_native = time.perf_counter()
+    native_ok = native.available()
     say("build", seconds=built["seconds"], built=built["built"],
         directory=str(_build.build_dir()), ptxas=[
             ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln],
-        viterbi_instances=k3, clock_instances=k2)
+        viterbi_instances=k3, clock_instances=k2,
+        native_library=dict(loaded=native_ok, path=str(native.library_path()),
+                            error=native.last_error(),
+                            seconds=time.perf_counter() - t_native))
     if len(k3) != len(viterbi_cuda.LANES) or any(any(v) for v in k3.values()):
         fail(f"viterbi: every instance must build without stack frame or spill: {k3}")
-    if sorted(k2) != ["0", "1"] or any(v[1] or v[2] for v in k2.values()) or k2["0"][0]:
-        fail(f"clock: both instances must build without spill, mmse without stack frame: {k2}")
+    if sorted(k2) != ["0", "1", "2", "3"] or any(v[1] or v[2] for v in k2.values()) \
+            or k2["0"][0] or k2["2"][0]:
+        fail(f"clock: every instance must build without spill, mmse without stack frame: {k2}")
 
     say("fir", card=smi, **check_fir())
     say("scan", card=smi, **check_scan())
@@ -2240,18 +2738,26 @@ def main() -> None:
              kernel_ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
         for r in rows])
 
-    counts, state, main_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db, cl_block=2)
+    main_blocks: list = []
+    counts, state, main_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db, cl_block=2,
+                                                  per_block=main_blocks)
     if PROFILE:
         say("profile", card=smi, path="main_path", **profile_steps(
-            _Stepper(rx.step, state), base, delays, float(np.mean(main_ms[1:BLOCKS]))))
-    del rx, state
-    torch.cuda.empty_cache()
+            _Stepper(rx.step, clone_state(state)), base, delays,
+            float(np.mean(main_ms[1:BLOCKS]))))
 
     split_counts, demod, dstate, split_ms = split_path(cfg, base, delays, vcdus, delivered, smi)
     if PROFILE:
         say("profile", card=smi, path="split_path (block_batch only)", **profile_steps(
             _Stepper(demod.block_batch, dstate), base, delays, split_ms))
     del demod, dstate
+    torch.cuda.empty_cache()
+
+    onchip_rows, onchip_counts = onchip_phase(
+        cfg, dcfg, base, delays, vcdus, esn0_db,
+        dict(rx=rx, state=state, ms=main_ms, per_block=main_blocks, delivered=delivered),
+        dict(ms=split_ms), rows, smi)
+    del rx, state
     torch.cuda.empty_cache()
 
     # The fused receive with the sinc interpolator: K2's other instance on
@@ -2294,6 +2800,15 @@ def main() -> None:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # The new instances: launches from the path that runs each (the on-chip
+    # fused receive, the block-update split path, or the forms' block_batch).
+    for r in onchip_rows:
+        for path in ("fused", "split", "forms"):
+            n = onchip_counts[path].get(r["name"], 0)
+            if n and "launches" not in r:
+                r["launches"], r["path"] = n, f"onchip_{path}"
+        if not r.get("launches"):
+            fail(f"onchip: no path launched {r['name']}")
     for r in rows:
         name = r["name"]
         if name in MAIN_PATH_KERNELS:
@@ -2313,9 +2828,9 @@ def main() -> None:
     say("total", seconds=time.perf_counter() - t_start, seconds_up_to_each_line=PHASE_S)
     print(smi, flush=True)
     extra = ("launches_split_path", "launches_apps", "launches_parallel", "lanes",
-             "split_shapes", "form")
+             "split_shapes", "form", "path", "exact_ms", "split_shape")
     print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + extra if k in r} for r in rows]}), flush=True)
+        {k: r[k] for k in keys + extra if k in r} for r in rows + onchip_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -209,6 +209,24 @@ def test_native_builds_once_under_concurrent_loads(tmp_path):
     assert sorted(os.listdir(os.path.join(ROOT, "native"))) == before
 
 
+def test_native_build_failure_is_reported(tmp_path):
+    """With the compiler missing the library is unavailable, and
+    `last_error()` says why, naming the compiler; nothing is written but the
+    lock."""
+    env = {**os.environ, "XRITDEMOD_TORCH_BUILD": str(tmp_path),
+           "CXX": str(tmp_path / "no-such-g++")}
+    env.pop("PYTHONPATH", None)
+    code = ("from xritdemod_tpu_torch.runtime import native\n"
+            "print(native.last_error()); print(native.available()); print(native.last_error())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    before, avail, why = out.stdout.splitlines()
+    assert before == "None" and avail == "False"
+    assert "no-such-g++" in why and "not found" in why
+    assert sorted(os.listdir(tmp_path)) == ["libxrit_io.lock"]
+
+
 @pytest.fixture(scope="module")
 def native_lib():
     if not HAVE_GXX:
@@ -325,6 +343,40 @@ def test_checkpoints_cross_between_packages(tmp_path, batched):
     tpath = str(tmp_path / "port.npz")
     checkpoint.save_state(tpath, got)
     back = jckpt.load_state(tpath, jlike)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jst)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_bf16_ring_checkpoint_crosses_between_packages(tmp_path):
+    """A fused receiver's state with a bfloat16 ring: the JAX package's
+    checkpoint loads into the port's bf16 ring bit for bit (and as
+    `convert.rx_state_from_numpy` gives it); the port's loads back into the
+    JAX package's state, the ring still bfloat16 and unchanged."""
+    import jax.numpy as jnp
+    from xritdemod_tpu.models.decoder import DecoderConfig as JDecoderConfig
+    from xritdemod_tpu.models.receiver import FusedReceiver as JFusedReceiver
+
+    jrx = JFusedReceiver(JDemodConfig.lrit(), JDecoderConfig(), channels=2, block_len=2048,
+                         ring_dtype="bfloat16")
+    trx = FusedReceiver(DemodConfig.lrit(), DecoderConfig(), channels=2, block_len=2048,
+                        ring_dtype="bfloat16", device="cpu")
+    jlike, tlike = jrx.init_state(), trx.init_state()
+    assert tlike.ring.dtype == torch.bfloat16 and tlike.ring.shape == jlike.ring.shape
+    rng = np.random.default_rng(12)
+    jst = jlike._replace(ring=jnp.asarray(rng.normal(size=jlike.ring.shape), jnp.bfloat16),
+                         fill=jnp.asarray([7, 300], jnp.int32))
+    jpath, tpath = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jckpt.save_state(jpath, jst)
+    got = checkpoint.load_state(jpath, tlike)
+    assert got.ring.dtype == torch.bfloat16
+    want = convert.rx_state_from_numpy(jnp_tree(jst), "cpu")
+    assert want.ring.dtype == torch.bfloat16
+    assert torch.equal(got.ring.view(torch.int16), want.ring.view(torch.int16))
+    np.testing.assert_array_equal(got.ring.float().numpy(), np.asarray(jst.ring, np.float32))
+    assert tnp(got.ring).dtype.name == "bfloat16"
+    checkpoint.save_state(tpath, got)
+    back = jckpt.load_state(tpath, jlike)
+    assert back.ring.dtype == jnp.bfloat16
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jst)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 

@@ -7,8 +7,14 @@ batched, or the serial path's unbatched one), `RxState`, decoder tails and a
 `StreamDecoder`'s host state — given as **numpy arrays** in the same nesting
 (NamedTuples, plain tuples in field order, or dicts keyed by field name; the
 caller does the `np.asarray`) — into the port's state on a device, and back;
-and a `DecoderConfig`'s fields into the port's `DecoderConfig`.  Nothing here
-imports JAX.
+and a `DecoderConfig`'s or `DemodConfig`'s fields into the port's.  Nothing
+here imports JAX.
+
+A bfloat16 ring crosses as bfloat16: the JAX package hands it as an
+`ml_dtypes.bfloat16` array (or, through numpy without that package, as its
+2-byte pattern, dtype `V2`), whose bits become a `torch.bfloat16` tensor; and
+`to_numpy` gives a bfloat16 tensor back as `ml_dtypes.bfloat16` (`V2` where
+`ml_dtypes` is not installed).
 
 Field order (both packages):
   DemodState  (dec_hist, agc_gain, rrc_hist, costas, clock)
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from xritdemod_tpu_torch.models.decoder import DecoderConfig, StreamDecoder
-from xritdemod_tpu_torch.models.demodulator import DemodState
+from xritdemod_tpu_torch.models.demodulator import DemodConfig, DemodState
 from xritdemod_tpu_torch.models.receiver import RxState
 from xritdemod_tpu_torch.ops.clock_recovery import ClockRecoveryState
 from xritdemod_tpu_torch.ops.costas import CostasState
@@ -37,6 +43,7 @@ from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = [
     "decoder_config_from",
+    "demod_config_from",
     "demod_state_from_numpy",
     "rx_state_from_numpy",
     "stream_decoder_from_numpy",
@@ -97,16 +104,43 @@ def decoder_config_from(config) -> DecoderConfig:
     return DecoderConfig(**{f.name: get(f.name) for f in dataclasses.fields(DecoderConfig)})
 
 
+def demod_config_from(config) -> DemodConfig:
+    """The port's `DemodConfig` with the fields of `config` (the JAX
+    package's `DemodConfig`, or a dict keyed by field name) that it shares:
+    the operating point, `clock_interp`, `frontend_kernel`, and the forms
+    `clock_block_update`, `frontend_block_update` and `frontend_precision`.
+    The JAX package's TPU tuning fields have no counterpart and are left."""
+    get = (lambda n: config[n]) if isinstance(config, dict) else (lambda n: getattr(config, n))
+    return DemodConfig(**{f.name: get(f.name) for f in dataclasses.fields(DemodConfig)})
+
+
 def tails_from_numpy(tails, device="cuda") -> torch.Tensor:
     """Decoder Viterbi history tails `(B, 64)` (or `(64,)`) -> float32 tensor."""
     return _f32(tails, device)
 
 
+def bf16_bits(a) -> bool:
+    """Whether numpy array `a` holds bfloat16 values (`ml_dtypes.bfloat16`,
+    or their bare 2-byte pattern `V2`)."""
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2)
+
+
+def ring_from_numpy(ring, device="cuda") -> torch.Tensor:
+    """A ring `(C, L)`: bfloat16 (see the module docstring) stays bfloat16,
+    its bits reinterpreted; any other float type becomes float32."""
+    ring = np.asarray(ring)
+    if bf16_bits(ring):
+        bits = torch.from_numpy(np.ascontiguousarray(ring).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return _f32(np.asarray(ring, np.float32), device)
+
+
 def rx_state_from_numpy(state, device="cuda") -> RxState:
-    """`RxState` (numpy leaves; the ring in any float type) -> the port's."""
+    """`RxState` (numpy leaves; the ring bfloat16 or any float type) -> the
+    port's."""
     return RxState(
         demod=demod_state_from_numpy(_field(state, "demod", 0), device),
-        ring=_f32(np.asarray(_field(state, "ring", 1), np.float32), device),
+        ring=ring_from_numpy(_field(state, "ring", 1), device),
         fill=_tensor(_field(state, "fill", 2), torch.int32, device),
         locked=_tensor(_field(state, "locked", 3), torch.bool, device),
         tails=tails_from_numpy(_field(state, "tails", 4), device),
@@ -154,6 +188,8 @@ def to_numpy(state):
         if s is None:
             return None
         if isinstance(s, torch.Tensor):
+            if s.dtype == torch.bfloat16:
+                return _bf16_numpy(s)
             return s.numpy()
         return tuple(finish(x) for x in s)
 
@@ -161,3 +197,14 @@ def to_numpy(state):
     for stream in streams:
         stream.synchronize()
     return finish(host)
+
+
+def _bf16_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU bfloat16 tensor -> numpy `ml_dtypes.bfloat16` (its bits as `V2`
+    without `ml_dtypes`)."""
+    bits = t.contiguous().view(torch.int16).numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return bits.view("V2")
+    return bits.view(ml_dtypes.bfloat16)

@@ -37,31 +37,84 @@
 // contraction and without fast-math: each product and sum rounds as the
 // plain PyTorch version's does, sine, cosine and sqrtf are the accurate
 // forms, and the per-sample arithmetic is loops.cuh's, shared with stream.cu.
+//
+// Two more forms of the Pallas kernel, chosen per launch by template
+// (frontend_kernel<TR, SLAB, BF16>; <48, false, false> is the exact form):
+//
+//   SLAB   its block_k = K: the AGC warp computes a slab of K gains from an
+//          affine prefix over the slab's magnitudes (ops/agc.agc_slab_gains:
+//          log2 K passes, in registers for K <= 16 and over a per-lane
+//          scratch column in shared memory above, the max-gain clamp exact
+//          through a running minimum), and the Costas warp runs the slab
+//          update of loops.cuh (K rotations that depend only on the slab's
+//          first phase and freq, taken a batch at a time, then one update of
+//          the loop filter): neither chain is a sample any more.  The AGC
+//          warp then has work enough to lose its scheduler's cycles to
+//          greedy FIR warps, so it moves beside the Costas warp (see Layout).  The AGC
+//          needs whole slabs in a tile, so the tile is TR = 48 samples where
+//          K divides 48 and 64 (eight FIR warps) where K divides 64; slabs
+//          start at the block's first sample.  K is a launch argument.
+//   BF16   its precision "bf16": the FIR warps round each AGC output and
+//          each tap to bfloat16 (to nearest even) before the product, which
+//          is then exact in float32; the sums stay float32 in ascending tap
+//          order.  The carried history keeps the float32 AGC outputs.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "loops.cuh"     // agc_mag, agc_gain_step, costas_step
+#include "loops.cuh"     // agc_mag, agc_gain_step, costas_step, costas_slab_*
 #include "sync.cuh"      // mbarriers, cp.async
 
-#define TR 48            // samples per tile
 #define NX 3             // input tiles in flight
 #define NF 3             // filter-output tiles in flight
 #define FIR_R 8          // outputs per thread in the FIR
-#define FIR_WARPS (TR / FIR_R)
-#define FIR_THREADS (FIR_WARPS * 32)
 #define FIR_PAD (FIR_R - 1)
 #define FIR_MAX_TAPS 256
 #define CHAIN 4          // samples a chain warp holds in registers at a time
 #define FIR_BARRIER 1
-#define NWARPS 13
 
 // A warp's scheduler is its index mod 4, and a scheduler is greedy: a warp
 // with independent instructions ready (the FIR) holds back a warp that waits
 // on its own last result (a chain).  So the Costas chain, which sets the
 // kernel's time, has scheduler 3 to itself (warps 7 and 11 leave at once),
-// and the six FIR warps are two to each of the other three.
-enum Role { FIR0, FIR1, FIR2, COSTAS, FIR3, FIR4, FIR5, IDLE7, LOADER, MAG, AGC, IDLE11, STORE };
+// and the FIR warps (TR / FIR_R: six at TR = 48) are two or three to each of
+// the other three, followed there by the loader, magnitude, AGC and store
+// warps.
+enum Role { COSTAS = 3, IDLE7 = 7, IDLE11 = 11 };
+
+// The warp index of the n-th warp off scheduler 3.
+constexpr int off_costas_scheduler(int n) { return n + n / 3; }
+
+// With SLAB the AGC warp is no short chain any more but a slab's prefix, and
+// next to greedy FIR warps it would wait for the scheduler: it takes warp 7,
+// beside the Costas warp on scheduler 3 (the Costas warp's slab walk, too,
+// has independent work at every step).
+template <int TR, bool SLAB>
+struct Layout {
+    static constexpr int FIR_WARPS = TR / FIR_R;
+    static constexpr int FIR_THREADS = FIR_WARPS * 32;
+    static constexpr int LOADER = off_costas_scheduler(FIR_WARPS),
+                         MAG = off_costas_scheduler(FIR_WARPS + 1),
+                         AGC = SLAB ? IDLE7 : off_costas_scheduler(FIR_WARPS + 2),
+                         STORE = off_costas_scheduler(FIR_WARPS + 3);
+    static constexpr int NWARPS = STORE + 1;
+    static_assert(TR % FIR_R == 0 && FIR_WARPS <= 8, "tile");
+};
+static_assert(Layout<48, false>::LOADER == 8 && Layout<48, false>::MAG == 9
+              && Layout<48, false>::AGC == 10 && Layout<48, false>::STORE == 12
+              && Layout<48, false>::NWARPS == 13, "the exact form's warps");
+
+// The FIR index of a FIR warp.
+template <int TR>
+__device__ __forceinline__ int fir_index(int role) {
+    if constexpr (TR / FIR_R <= 6) return role < COSTAS ? role : role - 1;
+    else return role < COSTAS ? role : role < IDLE7 ? role - 1 : role - 2;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 struct FrontArgs {
     const float *xr, *xi;              // (T, C) block
@@ -76,9 +129,12 @@ struct FrontArgs {
     int T, C, ntaps, win;              // win: rows of the FIR ring, a power of two
     float rate, reference, max_gain;
     float alpha, beta, freq_min, freq_max;
+    int bk, nwrap;                     // SLAB: samples a slab, Costas wrap steps a slab
 };
 
-// The fixed part of shared memory; the FIR ring (2 x win x 32 floats) follows.
+// The fixed part of shared memory; the FIR ring (2 x win x 32 floats)
+// follows, and with SLAB the AGC's scratch (3 x TR x 32 floats).
+template <int TR>
 struct Tiles {
     float xr[NX][TR][32];
     float xi[NX][TR][32];
@@ -98,7 +154,8 @@ struct Group {                         // what every role knows of its block
     bool live;                         // dead lanes shadow channel C-1, store nothing
 };
 
-__device__ __forceinline__ void load_tiles(const FrontArgs& a, Tiles& s, const Group& g) {
+template <int TR>
+__device__ __forceinline__ void load_tiles(const FrontArgs& a, Tiles<TR>& s, const Group& g) {
     for (int i = 0; i < g.ntiles; ++i) {
         const int xs = i % NX, turn = i / NX;
         mbar_wait(&s.x_free[xs], (turn & 1) ^ 1);
@@ -116,7 +173,8 @@ __device__ __forceinline__ void load_tiles(const FrontArgs& a, Tiles& s, const G
     cp_async_wait_all();
 }
 
-__device__ __forceinline__ void magnitudes(Tiles& s, const Group& g) {
+template <int TR>
+__device__ __forceinline__ void magnitudes(Tiles<TR>& s, const Group& g) {
     for (int i = 0; i < g.ntiles; ++i) {
         const int xs = i % NX, turn = i / NX;
         mbar_wait(&s.x_full[xs], turn & 1);
@@ -127,13 +185,127 @@ __device__ __forceinline__ void magnitudes(Tiles& s, const Group& g) {
     }
 }
 
-__device__ __forceinline__ void agc_chain(const FrontArgs& a, Tiles& s, const Group& g) {
+// One slab of K rows of the magnitude tile m (element k at m[k * 32]) turned
+// into the gains those rows met, from the slab's first gain g, which becomes
+// the gain after the slab (ops/agc.agc_slab_gains).  A, B, Q: this lane's
+// scratch columns, K rows each.
+__device__ __forceinline__ void agc_slab(const FrontArgs& a, float* m, float* A, float* B,
+                                         float* Q, float& g) {
+    const int K = a.bk;
+    const float rb = a.rate * a.reference;
+    for (int k = 0; k < K; ++k) {
+        A[k * 32] = 1.0f - a.rate * m[k * 32];
+        B[k * 32] = rb;
+    }
+    // Hillis-Steele: row k combines with row k - s, rows taken downward so
+    // that each pass reads the previous pass's values.
+    for (int s = 1; s < K; s *= 2) {
+        for (int k = K - 1; k >= s; --k) {
+            B[k * 32] = A[k * 32] * B[(k - s) * 32] + B[k * 32];
+            A[k * 32] = A[k * 32] * A[(k - s) * 32];
+        }
+    }
+    const float g0 = g;
+    if (a.max_gain > 0.0f) {
+        for (int k = 0; k < K; ++k) Q[k * 32] = (a.max_gain - B[k * 32]) / A[k * 32];
+        for (int s = 1; s < K; s *= 2)
+            for (int k = K - 1; k >= s; --k) Q[k * 32] = fminf(Q[k * 32], Q[(k - s) * 32]);
+        float met = g0;
+#pragma unroll 4
+        for (int k = 0; k < K; ++k) {
+            const float gn = fminf(A[k * 32] * fminf(g0, Q[k * 32]) + B[k * 32], a.max_gain);
+            m[k * 32] = met;
+            met = gn;
+        }
+        g = met;
+    } else {
+        float met = g0;
+#pragma unroll 4
+        for (int k = 0; k < K; ++k) {
+            const float gn = A[k * 32] * g0 + B[k * 32];
+            m[k * 32] = met;
+            met = gn;
+        }
+        g = met;
+    }
+}
+
+// The same slab in registers, for K <= KMAX: every loop unrolled to KMAX with
+// the rows past K idle, so the arrays never leave registers.
+template <int KMAX>
+__device__ __forceinline__ void agc_slab_regs(const FrontArgs& a, float* m, float& g) {
+    const int K = a.bk;
+    const float rb = a.rate * a.reference;
+    float A[KMAX], B[KMAX], Q[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+        A[k] = k < K ? 1.0f - a.rate * m[k * 32] : 1.0f;
+        B[k] = rb;
+    }
+#pragma unroll
+    for (int s = 1; s < KMAX; s *= 2) {
+        if (s < K) {
+#pragma unroll
+            for (int k = KMAX - 1; k >= s; --k) {
+                B[k] = A[k] * B[k - s] + B[k];
+                A[k] = A[k] * A[k - s];
+            }
+        }
+    }
+    const float g0 = g;
+    float met = g0;
+    if (a.max_gain > 0.0f) {
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) Q[k] = (a.max_gain - B[k]) / A[k];
+#pragma unroll
+        for (int s = 1; s < KMAX; s *= 2) {
+            if (s < K) {
+#pragma unroll
+                for (int k = KMAX - 1; k >= s; --k) Q[k] = fminf(Q[k], Q[k - s]);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) {
+            if (k < K) {
+                const float gn = fminf(A[k] * fminf(g0, Q[k]) + B[k], a.max_gain);
+                m[k * 32] = met;
+                met = gn;
+            }
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) {
+            if (k < K) {
+                const float gn = A[k] * g0 + B[k];
+                m[k * 32] = met;
+                met = gn;
+            }
+        }
+    }
+    g = met;
+}
+
+template <int TR, bool SLAB>
+__device__ __forceinline__ void agc_chain(const FrontArgs& a, Tiles<TR>& s, float* scratch,
+                                          const Group& g) {
     float gain = a.gain_in[g.cc];
     for (int i = 0; i < g.ntiles; ++i) {
         const int xs = i % NX, turn = i / NX;
         mbar_wait(&s.m_full[xs], turn & 1);
         const int n = min(TR, a.T - i * TR);
-        if (n == TR) {
+        if constexpr (SLAB) {
+            float* A = scratch + g.lane;
+            if (a.bk <= 8) {
+#pragma unroll 1
+                for (int r0 = 0; r0 < n; r0 += a.bk) agc_slab_regs<8>(a, &s.mg[xs][r0][g.lane], gain);
+            } else if (a.bk <= 16) {
+#pragma unroll 1
+                for (int r0 = 0; r0 < n; r0 += a.bk) agc_slab_regs<16>(a, &s.mg[xs][r0][g.lane], gain);
+            } else {
+                for (int r0 = 0; r0 < n; r0 += a.bk)
+                    agc_slab(a, &s.mg[xs][r0][g.lane], A, A + TR * 32, A + 2 * TR * 32, gain);
+            }
+        } else if (n == TR) {
 #pragma unroll 1
             for (int u0 = 0; u0 < TR; u0 += CHAIN) {
                 float m[CHAIN];
@@ -161,13 +333,17 @@ __device__ __forceinline__ void agc_chain(const FrontArgs& a, Tiles& s, const Gr
     if (g.live) a.gain_out[g.c0 + g.lane] = gain;
 }
 
-__device__ __forceinline__ void fir_stage(const FrontArgs& a, Tiles& s, float* er, float* ei,
+template <int TR, bool BF16>
+__device__ __forceinline__ void fir_stage(const FrontArgs& a, Tiles<TR>& s, float* er, float* ei,
                                           const Group& g, int w) {
+    constexpr int FIR_WARPS = Layout<TR, false>::FIR_WARPS;
+    constexpr int FIR_THREADS = Layout<TR, false>::FIR_THREADS;
     const int nh = a.ntaps - 1, mask = a.win - 1, lane = g.lane;
     const int blocks = (a.ntaps + FIR_PAD + FIR_R - 1) / FIR_R;    // of FIR_R ring rows
     for (int m = w * 32 + lane; m < (blocks + 1) * FIR_R; m += FIR_THREADS) {
         const int k = m - FIR_PAD;
-        s.taps[m] = (k >= 0 && k < a.ntaps) ? a.taps[k] : 0.0f;
+        const float t = (k >= 0 && k < a.ntaps) ? a.taps[k] : 0.0f;
+        s.taps[m] = BF16 ? round_bf16(t) : t;
     }
     // Ring row e holds row e of [history | AGC output], at e mod win.  The
     // ring starts as zeros: a row the products below reach before it is
@@ -218,6 +394,10 @@ __device__ __forceinline__ void fir_stage(const FrontArgs& a, Tiles& s, float* e
             for (int jj = 0; jj < FIR_R; ++jj) {
                 vr[jj] = er[pos + jj * 32];
                 vi[jj] = ei[pos + jj * 32];
+                if constexpr (BF16) {
+                    vr[jj] = round_bf16(vr[jj]);
+                    vi[jj] = round_bf16(vi[jj]);
+                }
                 tn[jj] = s.taps[jb * FIR_R + jj + 1 + FIR_PAD];
             }
 #pragma unroll
@@ -252,13 +432,18 @@ __device__ __forceinline__ void fir_stage(const FrontArgs& a, Tiles& s, float* e
     }
 }
 
-__device__ __forceinline__ void costas_chain(const FrontArgs& a, Tiles& s, const Group& g) {
+template <int TR, bool SLAB>
+__device__ __forceinline__ void costas_chain(const FrontArgs& a, Tiles<TR>& s, const Group& g) {
     float phase = a.phase_in[g.cc], freq = a.freq_in[g.cc];
+    CostasSlab slab{phase, freq, 0.0f, 0.0f, 0};
     for (int i = 0; i < g.ntiles; ++i) {
         const int fs = i % NF, fturn = i / NF;
         mbar_wait(&s.f_full[fs], fturn & 1);
         const int n = min(TR, a.T - i * TR);
-        if (n == TR) {
+        if constexpr (SLAB) {
+            costas_slab_walk(&s.fr[fs][0][g.lane], &s.fi[fs][0][g.lane], 32, n, slab, a.bk,
+                             a.alpha, a.beta, a.freq_min, a.freq_max, a.nwrap);
+        } else if (n == TR) {
 #pragma unroll 1
             for (int u0 = 0; u0 < TR; u0 += CHAIN) {
                 float vr[CHAIN], vi[CHAIN];
@@ -292,13 +477,18 @@ __device__ __forceinline__ void costas_chain(const FrontArgs& a, Tiles& s, const
         }
         mbar_arrive(&s.y_full[fs]);
     }
+    if constexpr (SLAB) {
+        phase = slab.phase;
+        freq = slab.freq;
+    }
     if (g.live) {
         a.phase_out[g.c0 + g.lane] = phase;
         a.freq_out[g.c0 + g.lane] = freq;
     }
 }
 
-__device__ __forceinline__ void store_tiles(const FrontArgs& a, Tiles& s, const Group& g) {
+template <int TR>
+__device__ __forceinline__ void store_tiles(const FrontArgs& a, Tiles<TR>& s, const Group& g) {
     for (int i = 0; i < g.ntiles; ++i) {
         const int fs = i % NF, fturn = i / NF;
         mbar_wait(&s.y_full[fs], fturn & 1);
@@ -317,10 +507,13 @@ __device__ __forceinline__ void store_tiles(const FrontArgs& a, Tiles& s, const 
     }
 }
 
-__global__ void __launch_bounds__(NWARPS * 32, 1) frontend_kernel(const FrontArgs a) {
+template <int TR, bool SLAB, bool BF16>
+__global__ void __launch_bounds__(Layout<TR, SLAB>::NWARPS * 32, 1) frontend_kernel(const FrontArgs a) {
+    using L = Layout<TR, SLAB>;
+    constexpr int FIR_THREADS = L::FIR_THREADS;
     extern __shared__ __align__(16) unsigned char smem[];
-    Tiles& s = *reinterpret_cast<Tiles*>(smem);
-    float* er = reinterpret_cast<float*>(smem + sizeof(Tiles));
+    Tiles<TR>& s = *reinterpret_cast<Tiles<TR>*>(smem);
+    float* er = reinterpret_cast<float*>(smem + sizeof(Tiles<TR>));
     float* ei = er + a.win * 32;
 
     if (threadIdx.x == 0) {
@@ -349,12 +542,13 @@ __global__ void __launch_bounds__(NWARPS * 32, 1) frontend_kernel(const FrontArg
     // instruction cache of the schedulers they run on.
     const int role = threadIdx.x >> 5;
     const long long role_t0 = role_clock_start();
-    if (role == LOADER) load_tiles(a, s, g);
-    else if (role == MAG) magnitudes(s, g);
-    else if (role == AGC) agc_chain(a, s, g);
-    else if (role == COSTAS) costas_chain(a, s, g);
-    else if (role == STORE) store_tiles(a, s, g);
-    else if (role != IDLE7 && role != IDLE11) fir_stage(a, s, er, ei, g, role < COSTAS ? role : role - 1);
+    if (role == L::LOADER) load_tiles(a, s, g);
+    else if (role == L::MAG) magnitudes(s, g);
+    else if (role == L::AGC) agc_chain<TR, SLAB>(a, s, ei + a.win * 32, g);
+    else if (role == COSTAS) costas_chain<TR, SLAB>(a, s, g);
+    else if (role == L::STORE) store_tiles(a, s, g);
+    else if (SLAB ? (role & 3) != 3 && role < L::LOADER : role != IDLE7 && role != IDLE11)
+        fir_stage<TR, BF16>(a, s, er, ei, g, fir_index<TR>(role));
     role_clock_stop(role_t0);
 }
 
@@ -382,16 +576,28 @@ extern "C" int xrit_trig_mismatches(float lo, float hi, long long n, void* misma
     return (int)cudaGetLastError();
 }
 
-// x, y (T, C); hist in and out (C, ntaps-1); state vectors (C,).  One launch.
-extern "C" int xrit_frontend(
+template <int TR, bool SLAB, bool BF16>
+static int launch_frontend(FrontArgs a, void* stream) {
+    a.win = 64;
+    while (a.win < a.ntaps - 1 + 2 * TR) a.win *= 2;
+    const size_t shared = sizeof(Tiles<TR>) + (size_t)2 * a.win * 32 * sizeof(float)
+        + (SLAB ? (size_t)3 * TR * 32 * sizeof(float) : 0);
+    int err = (int)cudaFuncSetAttribute(
+        frontend_kernel<TR, SLAB, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (err) return err;
+    frontend_kernel<TR, SLAB, BF16><<<(a.C + 31) / 32, Layout<TR, SLAB>::NWARPS * 32, shared,
+                                      (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+static FrontArgs front_args(
     const void* xr, const void* xi, const void* hr, const void* hi,
     void* hr_out, void* hi_out, void* yr, void* yi, const void* taps,
     const void* gain_in, void* gain_out,
     const void* phase_in, const void* freq_in, void* phase_out, void* freq_out,
     int T, int C, int ntaps,
     float rate, float reference, float max_gain,
-    float alpha, float beta, float freq_min, float freq_max, void* stream) {
-    if (ntaps < 1 || ntaps > FIR_MAX_TAPS || T < 1 || C < 1) return (int)cudaErrorInvalidValue;
+    float alpha, float beta, float freq_min, float freq_max) {
     FrontArgs a;
     a.xr = (const float*)xr; a.xi = (const float*)xi;
     a.hr = (const float*)hr; a.hi = (const float*)hi;
@@ -402,14 +608,56 @@ extern "C" int xrit_frontend(
     a.phase_in = (const float*)phase_in; a.freq_in = (const float*)freq_in;
     a.phase_out = (float*)phase_out; a.freq_out = (float*)freq_out;
     a.T = T; a.C = C; a.ntaps = ntaps;
-    a.win = 64;
-    while (a.win < ntaps - 1 + 2 * TR) a.win *= 2;
     a.rate = rate; a.reference = reference; a.max_gain = max_gain;
     a.alpha = alpha; a.beta = beta; a.freq_min = freq_min; a.freq_max = freq_max;
-    const size_t shared = sizeof(Tiles) + (size_t)2 * a.win * 32 * sizeof(float);
-    int err = (int)cudaFuncSetAttribute(
-        frontend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-    if (err) return err;
-    frontend_kernel<<<(C + 31) / 32, NWARPS * 32, shared, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    a.bk = 0; a.nwrap = 0;
+    return a;
+}
+
+// x, y (T, C); hist in and out (C, ntaps-1); state vectors (C,).  One launch.
+// The exact form.
+extern "C" int xrit_frontend(
+    const void* xr, const void* xi, const void* hr, const void* hi,
+    void* hr_out, void* hi_out, void* yr, void* yi, const void* taps,
+    const void* gain_in, void* gain_out,
+    const void* phase_in, const void* freq_in, void* phase_out, void* freq_out,
+    int T, int C, int ntaps,
+    float rate, float reference, float max_gain,
+    float alpha, float beta, float freq_min, float freq_max, void* stream) {
+    if (ntaps < 1 || ntaps > FIR_MAX_TAPS || T < 1 || C < 1) return (int)cudaErrorInvalidValue;
+    const FrontArgs a = front_args(xr, xi, hr, hi, hr_out, hi_out, yr, yi, taps, gain_in,
+                                   gain_out, phase_in, freq_in, phase_out, freq_out, T, C,
+                                   ntaps, rate, reference, max_gain, alpha, beta, freq_min,
+                                   freq_max);
+    return launch_frontend<48, false, false>(a, stream);
+}
+
+// The same with the slab form (block_k = bk > 0, T a multiple of bk, bk
+// dividing 48 or 64; nwrap the Costas wrap steps a slab) and / or the bf16
+// filter products (bf16 != 0).
+extern "C" int xrit_frontend_form(
+    const void* xr, const void* xi, const void* hr, const void* hi,
+    void* hr_out, void* hi_out, void* yr, void* yi, const void* taps,
+    const void* gain_in, void* gain_out,
+    const void* phase_in, const void* freq_in, void* phase_out, void* freq_out,
+    int T, int C, int ntaps,
+    float rate, float reference, float max_gain,
+    float alpha, float beta, float freq_min, float freq_max,
+    int bk, int nwrap, int bf16, void* stream) {
+    if (ntaps < 1 || ntaps > FIR_MAX_TAPS || T < 1 || C < 1 || bk < 0 || (bk && T % bk)
+        || (bk && nwrap < 1))
+        return (int)cudaErrorInvalidValue;
+    FrontArgs a = front_args(xr, xi, hr, hi, hr_out, hi_out, yr, yi, taps, gain_in,
+                             gain_out, phase_in, freq_in, phase_out, freq_out, T, C,
+                             ntaps, rate, reference, max_gain, alpha, beta, freq_min,
+                             freq_max);
+    a.bk = bk;
+    a.nwrap = nwrap;
+    if (bk == 0) return bf16 ? launch_frontend<48, false, true>(a, stream)
+                             : launch_frontend<48, false, false>(a, stream);
+    if (48 % bk == 0) return bf16 ? launch_frontend<48, true, true>(a, stream)
+                                  : launch_frontend<48, true, false>(a, stream);
+    if (64 % bk == 0) return bf16 ? launch_frontend<64, true, true>(a, stream)
+                                  : launch_frontend<64, true, false>(a, stream);
+    return (int)cudaErrorInvalidValue;
 }

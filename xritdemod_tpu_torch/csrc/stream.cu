@@ -34,6 +34,13 @@
 // built without FMA contraction and without fast-math, so the AGC split into
 // magnitude, gain chain and product rounds as ops/agc.agc_block does, and the
 // Costas step as ops/costas.costas_block.
+//
+// The Costas kernel has a second form, the slab update of the Pallas fused
+// kernel's block_k (CostasSlabOp; ops/costas.costas_block_update): its chain
+// warp rotates K samples on the slab's frozen ramp (loops.cuh, the same
+// device functions as frontend.cu's), independent of each other, and updates
+// the loop once a slab.  Slabs run on across tiles, from the block's first
+// sample.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -179,6 +186,51 @@ struct CostasOp {
                         freq_min, freq_max, orr, oi);
             sts_f32<0>(a, orr);
             sts_f32<PLANE>(a, oi);
+        }
+    }
+};
+
+// K6's slab form: the same walk, a slab of K samples at a time; a slab may
+// run on into the next tile.
+struct CostasSlabOp {
+    static constexpr int NP = 2, CHAIN_PLANE = 0, MAGS = 0, WARPS = CHAIN_WARP + 1;
+    const float *phase_in, *freq_in;
+    float *phase_out, *freq_out;
+    float alpha, beta, freq_min, freq_max;
+    int K, nwrap;
+    CostasSlab st;
+    __device__ void load(int c) { st = CostasSlab{phase_in[c], freq_in[c], 0.0f, 0.0f, 0}; }
+    __device__ void save(int c) { phase_out[c] = st.phase; freq_out[c] = st.freq; }
+    __device__ __forceinline__ void walk(uint32_t a, int n) {
+        int u = 0;
+        while (u < n) {
+            const int m = min(K - st.k, n - u);
+            float s = st.s, r = st.r;
+            int j = 0;
+#pragma unroll 1
+            for (; j + SLAB_BATCH <= m; j += SLAB_BATCH) {
+                const uint32_t at = a + 4 * (u + j);
+                float vr[SLAB_BATCH], vi[SLAB_BATCH];
+                lds_row<0, SLAB_BATCH>(at, vr);
+                lds_row<PLANE, SLAB_BATCH>(at, vi);
+                costas_slab_batch(vr, vi, st, st.k + j, K, s, r);
+                sts_row<0, SLAB_BATCH>(at, vr);
+                sts_row<PLANE, SLAB_BATCH>(at, vi);
+            }
+#pragma unroll 1
+            for (; j < m; ++j) {
+                const uint32_t at = a + 4 * (u + j);
+                float orr, oi;
+                costas_slab_rotate(lds_f32<0>(at), lds_f32<PLANE>(at), st, st.k + j, K, s, r,
+                                   orr, oi);
+                sts_f32<0>(at, orr);
+                sts_f32<PLANE>(at, oi);
+            }
+            st.s = s;
+            st.r = r;
+            st.k += m;
+            u += m;
+            if (st.k == K) costas_slab_update(st, K, alpha, beta, freq_min, freq_max, nwrap);
         }
     }
 };
@@ -348,5 +400,22 @@ extern "C" int xrit_costas_block(
     op.phase_out = (float*)phase_out; op.freq_out = (float*)freq_out;
     op.alpha = alpha; op.beta = beta; op.freq_min = freq_min; op.freq_max = freq_max;
     op.phase = 0.0f; op.freq = 0.0f;
+    return launch(a, op, stream);
+}
+
+// The slab form: T a multiple of K; nwrap the wrap steps a slab.
+extern "C" int xrit_costas_slab(
+    const void* xr, const void* xi, void* yr, void* yi,
+    const void* phase_in, const void* freq_in, void* phase_out, void* freq_out,
+    int C, int T, float alpha, float beta, float freq_min, float freq_max,
+    int K, int nwrap, void* stream) {
+    if (C < 1 || T < 1 || K < 1 || T % K || nwrap < 1) return (int)cudaErrorInvalidValue;
+    const Args a{(const float*)xr, (const float*)xi, (float*)yr, (float*)yi, C, T};
+    CostasSlabOp op;
+    op.phase_in = (const float*)phase_in; op.freq_in = (const float*)freq_in;
+    op.phase_out = (float*)phase_out; op.freq_out = (float*)freq_out;
+    op.alpha = alpha; op.beta = beta; op.freq_min = freq_min; op.freq_max = freq_max;
+    op.K = K; op.nwrap = nwrap;
+    op.st = CostasSlab{0.0f, 0.0f, 0.0f, 0.0f, 0};
     return launch(a, op, stream);
 }

@@ -45,17 +45,26 @@ __all__ = ["DemodConfig", "DemodState", "Demodulator", "quantize_symbols", "slot
 CLOCK_MAX_BLOCK = 1 << 17
 
 
+def _segment_count(td: int) -> int:
+    """The reference's clock segments of a `td`-sample block: the smallest
+    number of equal segments that fit under CLOCK_MAX_BLOCK."""
+    if td <= CLOCK_MAX_BLOCK:
+        return 1
+    segs = -(-td // CLOCK_MAX_BLOCK)
+    while td % segs:
+        segs += 1
+    return segs
+
+
 def slot_budget(td: int, params: cr_op.ClockRecoveryParams) -> int:
     """Output slots of a block of `td` post-decimation samples: the
     reference's `num_slots` (`xritdemod_tpu/models/demodulator.py`), so that
     outputs and `valid` masks have its shapes.  Past CLOCK_MAX_BLOCK the
     block counts as the smallest number of equal segments that fit under it,
-    each with its own budget; the port still runs one clock launch a block."""
-    if td <= CLOCK_MAX_BLOCK:
-        return cr_op.max_symbols(td, params)
-    segs = -(-td // CLOCK_MAX_BLOCK)
-    while td % segs:
-        segs += 1
+    each with its own budget; the port still runs one clock launch a block
+    (whose block update restarts its chunks at each segment, as the
+    reference's segmented launches do)."""
+    segs = _segment_count(td)
     return segs * cr_op.max_symbols(td // segs, params)
 
 
@@ -64,8 +73,10 @@ class DemodConfig:
     """Demodulator operating point (mirrors xritdemod.cfg keys).
 
     The fields and defaults are those of the JAX package's `DemodConfig`
-    minus its device tuning knobs (tile sizes, per-stage kernel selectors,
-    block updates), which choose between TPU forms and have no meaning here.
+    minus its device tuning knobs (tile sizes, superchunks, per-stage XLA or
+    Pallas selectors), which choose between TPU forms of one function and
+    have no meaning here.  The block updates and the bf16 filter are kept:
+    each computes a different function, which a user may select.
     """
 
     symbol_rate: int = C.LRIT_SYMBOL_RATE
@@ -91,6 +102,30 @@ class DemodConfig:
     # `(C, T)` clock entry, same math.  "auto" is the fused kernel, which has
     # no shape prerequisite here.
     frontend_kernel: str = "auto"
+    # The block-update clock on the batch paths: 0 is the exact per-symbol
+    # recursion; K > 0 freezes the clock for each chunk of K symbol slots
+    # (ops/clock_recovery.clock_recovery_block_update_batch): symbols move
+    # by sub-1 % timing jitter, post-FEC frames stay bit-exact.
+    clock_block_update: int = 0
+    # K-row slabs for the AGC and Costas loops of the batch paths: 0 is the
+    # exact per-sample recursions; K > 0 runs the fused front end's AGC as an
+    # affine prefix over K-row slabs and the Costas loop as the frozen-ramp
+    # slab update (on the split path the Costas loop only, as the JAX
+    # package's CPU split path does); -1 is auto.  The block length (after
+    # decimation) must be a multiple of K, and on the card the fused front
+    # end's K must divide 48 or 64 (`ops/frontend_cuda.tile_rows`).
+    frontend_block_update: int = -1
+    # The fused front end's matched filter: "highest" (float32) or "bf16"
+    # (each AGC output and tap rounded to bfloat16, products and sums in
+    # float32); "default" computes as "highest", as XLA on a CPU computes the
+    # JAX package's "default"; "auto" is "highest".
+    #
+    # The JAX package resolves frontend_block_update=-1 to K = 8 and "auto"
+    # to bf16 on its fused TPU path (faster there at the same post-FEC
+    # frames), and to the exact float32 forms elsewhere.  The port resolves
+    # both to the exact float32 forms on every device, the card included,
+    # until a measurement of the forms on the card decides otherwise.
+    frontend_precision: str = "auto"
 
     @classmethod
     def lrit(cls, sample_rate: int = 1_250_000, decimation: int = 1, **kw) -> "DemodConfig":
@@ -148,6 +183,26 @@ class Demodulator:
                 "frontend_kernel must be 'auto', 'fused' or 'split', "
                 f"got {config.frontend_kernel!r}"
             )
+        if config.frontend_precision not in ("auto", "highest", "default", "bf16"):
+            raise ValueError(
+                "frontend_precision must be 'auto', 'highest', 'default' or 'bf16', "
+                f"got {config.frontend_precision!r}"
+            )
+        if config.clock_block_update < 0:
+            raise ValueError(
+                f"clock_block_update must be >= 0, got {config.clock_block_update}")
+        if config.frontend_block_update < -1:
+            raise ValueError(
+                f"frontend_block_update must be >= 0 (or -1, auto), "
+                f"got {config.frontend_block_update}")
+        # The forms the batch path runs (see DemodConfig).
+        self.block_k = max(config.frontend_block_update, 0)
+        self.precision = "bf16" if config.frontend_precision == "bf16" else "highest"
+        td = block_len // config.decimation
+        if self.block_k and td % self.block_k:
+            raise ValueError(
+                f"block length {td} (after decimation) not a multiple of "
+                f"frontend_block_update {self.block_k}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Demodulator(device='cuda') needs a CUDA device")
@@ -184,7 +239,8 @@ class Demodulator:
             gain_mu=config.clock_alpha,
             omega_relative_limit=config.clock_omega_limit,
         )
-        self.num_slots = slot_budget(block_len // config.decimation, self._clock)
+        self.num_slots = slot_budget(td, self._clock)
+        self.clock_segments = _segment_count(td)
         self._hpf_taps = t(
             filters.highpass_taps(
                 1.0, config.circuit_sample_rate, float(config.symbol_rate), 300e3
@@ -252,9 +308,11 @@ class Demodulator:
         yT, agc_gain, rrc_hist, costas_state = demod_frontend(
             xT, state.agc_gain, state.rrc_hist, state.costas,
             self._agc, self._rrc_taps, self._costas,
+            block_k=self.block_k, precision=self.precision,
         )
         syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
-            yT, state.clock, self._clock, self.num_slots, self.config.clock_interp
+            yT, state.clock, self._clock, self.num_slots, self.config.clock_interp,
+            self.config.clock_block_update, self.clock_segments,
         )
         return syms.re, valid, DemodState(dec_hist, agc_gain, rrc_hist, costas_state, clock_state)
 
@@ -273,13 +331,26 @@ class Demodulator:
             )
         return x, dec_hist
 
-    def _split(self, x: CF32, state: DemodState):
-        """The split front end and the `(C, T)` clock on a decimated block."""
+    def _split(self, x: CF32, state: DemodState, exact: bool = False):
+        """The split front end and the `(C, T)` clock on a decimated block.
+
+        The batch path runs the forms the config names: the slab Costas loop
+        with `frontend_block_update` K > 0, as the JAX package's CPU split
+        path does (its TPU split path keeps the exact Pallas Costas kernel
+        whatever K says; the port computes the one function the config
+        names on every device), the exact AGC (the split path's AGC has no
+        slab form here), and the block-update clock with
+        `clock_block_update`.  `exact` (the serial path) keeps the exact
+        forms, as the reference's `_block` does."""
+        cfg = self.config
+        fe_k = 0 if exact else self.block_k
+        ck_k = 0 if exact else cfg.clock_block_update
         x, agc_gain = agc_block_kernel(x, state.agc_gain, self._agc)
         x, rrc_hist = fir.fir_block(x, self._rrc_taps, state.rrc_hist)
-        x, costas_state = costas_block_kernel(x, state.costas, self._costas)
+        x, costas_state = costas_block_kernel(x, state.costas, self._costas, fe_k)
         syms, valid, clock_state = clock_recovery_block_kernel_batch(
-            x, state.clock, self._clock, self.num_slots, self.config.clock_interp
+            x, state.clock, self._clock, self.num_slots, cfg.clock_interp,
+            ck_k, self.clock_segments,
         )
         return syms, valid, agc_gain, rrc_hist, costas_state, clock_state
 
@@ -293,7 +364,8 @@ class Demodulator:
         The split path's stages on one channel: decimating FIR, the
         standalone AGC (K5), the RRC convolution, the standalone Costas loop
         (K6) and the `(C, T)` clock entry (K2, the instance of
-        `clock_interp`).  Its AGC is the exact per-sample recursion, as
+        `clock_interp`), in their exact forms whatever the block updates of
+        the config (as the reference's `_block`).  Its AGC is the exact per-sample recursion, as
         everywhere in this port, where the reference's `_block` runs the
         associative-scan AGC: the two agree to ~1e-6 relative, and the soft
         symbols to a few 1e-6 (`tests/test_torch_serial.py` holds them at
@@ -303,7 +375,8 @@ class Demodulator:
         x = CF32(x.re[None, :], x.im[None, :])
         batched = _map_state(lambda a: a[None], state)
         x, dec_hist = self._decimate(x, batched, "process")
-        syms, valid, agc_gain, rrc_hist, costas_state, clock_state = self._split(x, batched)
+        syms, valid, agc_gain, rrc_hist, costas_state, clock_state = self._split(
+            x, batched, exact=True)
         new = DemodState(dec_hist, agc_gain, rrc_hist, costas_state, clock_state)
         return syms.re[0], valid[0], _map_state(lambda a: a[0], new)
 

@@ -1,7 +1,7 @@
 """The fused receive: IQ blocks -> VCDU frames, all state on the device.
 
 Counterpart of `xritdemod_tpu/models/receiver.py` (`step`, the channels-last
-`step_cl` and `step_int8`; the bf16 ring is not ported).  Per
+`step_cl` and `step_int8`, the float32 or bfloat16 ring).  Per
 `(C, T)` IQ block:
 
   demod chain (front-end kernel + clock kernel)
@@ -42,7 +42,7 @@ _CODED = C.CODED_FRAME_SIZE
 
 class RxState(NamedTuple):
     demod: DemodState
-    ring: torch.Tensor        # (C, L) f32 symbol FIFOs
+    ring: torch.Tensor        # (C, L) f32 or bf16 symbol FIFOs
     fill: torch.Tensor        # (C,) int32 symbol counts
     locked: torch.Tensor      # (C,) bool frame lock
     tails: torch.Tensor       # (C, 64) f32 Viterbi history (phase-fixed domain)
@@ -58,6 +58,15 @@ class FusedReceiver:
     block's symbols on a full ring.  The state's ring is reused from step
     to step (the append writes into it), so a state is consumed by the step
     it is passed to.
+
+    `ring_dtype`: "float32", "bfloat16" (half the ring's bytes; the symbols
+    are rounded to bf16 as they enter it, whose 8-bit mantissa still holds
+    more than the reference's int8 symbol wire, and widened to float32 as
+    they leave it for the decoder) or "auto", float32 on every device of the
+    port.  The JAX package's "auto" takes bfloat16 on its TPU (when the
+    channels are a multiple of 16): there the ring's bytes weigh; whether
+    they weigh on the card is for a measurement to show, so the port keeps
+    the exact float32 ring by default.
     """
 
     def __init__(
@@ -68,8 +77,13 @@ class FusedReceiver:
         block_len: int = 1 << 17,
         ring_len: int | None = None,
         extracts_per_step: int | None = None,
+        ring_dtype: str = "auto",
         device="cuda",
     ):
+        if ring_dtype not in ("auto", "float32", "bfloat16"):
+            raise ValueError(
+                f"ring_dtype must be 'auto', 'float32' or 'bfloat16', got {ring_dtype!r}")
+        self.ring_dtype = torch.bfloat16 if ring_dtype == "bfloat16" else torch.float32
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("FusedReceiver(device='cuda') needs a CUDA device")
@@ -97,22 +111,29 @@ class FusedReceiver:
         Cn, L, dev = self.channels, self.ring_len, self.device
         return RxState(
             demod=self._demod.init_state_batch(Cn),
-            ring=torch.zeros((Cn, L), dtype=torch.float32, device=dev),
+            ring=torch.zeros((Cn, L), dtype=self.ring_dtype, device=dev),
             fill=torch.zeros((Cn,), dtype=torch.int32, device=dev),
             locked=torch.zeros((Cn,), dtype=torch.bool, device=dev),
             tails=torch.zeros((Cn, C.LAST_FRAME_DATA_BITS), dtype=torch.float32, device=dev),
         )
 
     def _acquire(self, ring: torch.Tensor):
-        counts = corr_op.correlate(ring[:, : self._acq], self._templates)
+        counts = corr_op.correlate(ring[:, : self._acq].float(), self._templates)
         corr, _, p = corr_op.best_correlation(counts)
         return corr, p
 
     def _after_demod(self, demod_out, st: RxState):
         soft, valid, dstate = demod_out
-        # The clock's valid mask is a per-channel prefix (slots are emitted
-        # in symbol order), so `soft` is already dense: the count is all the
-        # append needs.
+        # The exact clock's valid mask is a per-channel prefix (slots are
+        # emitted in symbol order), so `soft` is already dense: the count is
+        # all the append needs.  The block update's mask can have a gap (a
+        # chunk cut short at a limit, the next one going on): its symbols are
+        # packed to the front first, in order.  (The JAX package appends the
+        # count's prefix either way, which then takes a zero for the
+        # symbol after the gap.)
+        if self.demod_config.clock_block_update:
+            order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
+            soft = torch.gather(soft, 1, order)
         n_new = valid.sum(-1).to(torch.int32)
         ring, fill, ovf = ring_append(st.ring, st.fill, soft, n_new)
         locked, tails = st.locked, st.tails

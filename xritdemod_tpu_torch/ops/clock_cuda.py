@@ -6,7 +6,11 @@ per-symbol forms with either interpolator (`interp` "mmse" or "sinc", one
 kernel instance each, `launches` and `launches_sinc` count them): the
 recursion of `ops/clock_recovery.py` over
 `[tail | block]` in channels-last layout, each channel indexing its own
-sample position.
+sample position.  With `chunk` K > 0 the kernel's block-update instances
+run instead (the Pallas kernel's `block_update=True`; plain version
+`clock_recovery_block_update_batch`; `launches_bu`, `launches_bu_sinc`):
+the clock frozen over each chunk of K slots, whose K interpolations are
+independent of each other, `segments` the reference's time segments.
 
 What bounds it on an H100: the bytes are one read of the block and one
 write of the symbols, but each channel is a chain of ~T/sps dependent
@@ -37,7 +41,9 @@ from xritdemod_tpu_torch.ops.clock_recovery import (
     ClockRecoveryState,
     check_interp,
     clock_recovery_block_batch,
+    clock_recovery_block_update_batch,
     mmse_table,
+    segment_rows,
     sinc_table,
 )
 from xritdemod_tpu_torch.utils.cplx import CF32
@@ -49,10 +55,14 @@ __all__ = [
     "out_of_ring_symbols",
     "launches",
     "launches_sinc",
+    "launches_bu",
+    "launches_bu_sinc",
 ]
 
 launches = 0          # the mmse instance
 launches_sinc = 0     # the sinc instance
+launches_bu = 0       # the block update, mmse
+launches_bu_sinc = 0  # the block update, sinc
 
 # The kernel's warps in order of warp index (`enum Role` of csrc/clock.cu).
 ROLES = ("chain", "loader", "store")
@@ -76,24 +86,34 @@ def out_of_ring_symbols(device, reset: bool = False) -> int:
     return n
 
 
-def _lib(interp: str):
-    lib = _build.load("clock")
-    fn = lib.xrit_clock if interp == "mmse" else lib.xrit_clock_sinc
+_ENTRIES = {("mmse", False): "xrit_clock", ("sinc", False): "xrit_clock_sinc",
+            ("mmse", True): "xrit_clock_bu", ("sinc", True): "xrit_clock_sinc_bu"}
+
+
+def _lib(interp: str, bu: bool):
+    fn = getattr(_build.load("clock"), _ENTRIES[interp, bu])
     if not fn.argtypes:
         fn.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_int] * 3
-            + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_float] * 4 + [ctypes.c_int] * (2 if bu else 0) + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
 
 
+def _plain(x: CF32, state, params, num_slots: int, interp: str, chunk: int, segments: int):
+    if chunk:
+        return clock_recovery_block_update_batch(x, state, params, num_slots, chunk, interp,
+                                                 segments)
+    return clock_recovery_block_batch(x, state, params, num_slots, interp)
+
+
 @torch.no_grad()
 def clock_recovery_block_plain_cl(x: CF32, state, params, num_slots: int,
-                                  interp: str = "mmse"):
+                                  interp: str = "mmse", chunk: int = 0, segments: int = 1):
     """Plain version at the kernel's channels-last contract."""
     xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-    return clock_recovery_block_batch(xc, state, params, num_slots, interp)
+    return _plain(xc, state, params, num_slots, interp, chunk, segments)
 
 
 @torch.no_grad()
@@ -103,15 +123,22 @@ def clock_recovery_block_kernel_batch_cl(
     params: ClockRecoveryParams,
     num_slots: int,
     interp: str = "mmse",
+    chunk: int = 0,
+    segments: int = 1,
 ):
     """Channels-last entry: `(T, C)` CF32 block (as the front end leaves it),
     `(C,)`-leading state.  Returns `(symbols (C, S) CF32, valid (C, S) bool,
-    new_state)` — the contract of `clock_recovery_block_batch`."""
-    global launches, launches_sinc
+    new_state)` — the contract of `clock_recovery_block_batch`, or with
+    `chunk` K > 0 of `clock_recovery_block_update_batch`."""
+    global launches, launches_sinc, launches_bu, launches_bu_sinc
     check_interp(interp)
+    K = int(chunk)
+    if K < 0:
+        raise ValueError(f"chunk must be >= 0, got {K}")
     if not x.re.is_cuda:
-        return clock_recovery_block_plain_cl(x, state, params, num_slots, interp)
+        return clock_recovery_block_plain_cl(x, state, params, num_slots, interp, K, segments)
     T, C = x.re.shape
+    _, seg_rows = segment_rows(T, segments)
     S = int(num_slots)
     dev = x.re.device
     if T < NTAIL:
@@ -142,21 +169,32 @@ def clock_recovery_block_kernel_batch_cl(
     if slow is None:
         slow = _slow[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     outs = [sr, si, nvalid, mu_o, om_o, ii_o, pr_o, pi_o, cr_o, ci_o, slow]
-    ptrs = (ctypes.c_void_p * 23)(*[t.data_ptr() for t in ins + outs])
+    if K:
+        mask = new(C, S, dt=torch.uint8)
+        outs.append(mask)
+    ptrs = (ctypes.c_void_p * len(ins + outs))(*[t.data_ptr() for t in ins + outs])
     omega_lim = params.omega * params.omega_relative_limit
+    bu = (K, seg_rows if segments > 1 else 0) if K else ()
     with _build.launch_on(xr) as stream:
-        err = _lib(interp)(
+        err = _lib(interp, bool(K))(
             ctypes.cast(ptrs, ctypes.c_void_p), T, C, S,
             f32(params.omega), f32(omega_lim),
             f32(params.gain_omega), f32(params.gain_mu),
-            stream,
+            *bu, stream,
         )
-    _build.check(err, "xrit_clock" if interp == "mmse" else "xrit_clock_sinc")
-    if interp == "mmse":
-        launches += 1
+    _build.check(err, _ENTRIES[interp, bool(K)])
+    if K:
+        if interp == "mmse":
+            launches_bu += 1
+        else:
+            launches_bu_sinc += 1
+        valid = mask.bool()
     else:
-        launches_sinc += 1
-    valid = torch.arange(S, device=dev)[None, :] < nvalid[:, None]
+        if interp == "mmse":
+            launches += 1
+        else:
+            launches_sinc += 1
+        valid = torch.arange(S, device=dev)[None, :] < nvalid[:, None]
     new_state = ClockRecoveryState(
         mu=mu_o, omega=om_o, ii=ii_o,
         p=CF32(pr_o, pi_o), c=CF32(cr_o, ci_o),
@@ -172,10 +210,14 @@ def clock_recovery_block_kernel_batch(
     params: ClockRecoveryParams,
     num_slots: int,
     interp: str = "mmse",
+    chunk: int = 0,
+    segments: int = 1,
 ):
-    """`(C, T)` entry: drop-in for `clock_recovery_block_batch`."""
+    """`(C, T)` entry: drop-in for `clock_recovery_block_batch` (with
+    `chunk` K > 0: for `clock_recovery_block_update_batch`)."""
     check_interp(interp)
     if not x.re.is_cuda:
-        return clock_recovery_block_batch(x, state, params, num_slots, interp)
+        return _plain(x, state, params, num_slots, interp, int(chunk), segments)
     xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-    return clock_recovery_block_kernel_batch_cl(xT, state, params, num_slots, interp)
+    return clock_recovery_block_kernel_batch_cl(xT, state, params, num_slots, interp, chunk,
+                                                segments)

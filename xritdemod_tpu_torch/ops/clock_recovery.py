@@ -28,6 +28,12 @@ Symbols are emitted while `ii < n - 8` into fixed-capacity slots; the valid
 mask is a per-channel prefix, invalid slots are zero and leave the state
 untouched.  Block boundaries carry a fixed `NTAIL`-sample input tail.
 
+`clock_recovery_block_update_batch` is the block-update form (the Pallas
+kernel's `block_update=True`, `clock_recovery.py:511` of the JAX package):
+the clock is frozen over a chunk of K symbols, whose K interpolations then
+carry no dependency on each other, and the loop filter runs over the chunk's
+errors.  Its valid mask is not always a prefix (see there).
+
 The JAX package stages dense windows because per-channel offsets serialise
 on its device; here each channel simply indexes its own `ii`.  This plain
 form loops over the symbol slots in Python, vectorised over channels, and
@@ -51,6 +57,8 @@ __all__ = [
     "ClockRecoveryState",
     "clock_recovery_init",
     "clock_recovery_block_batch",
+    "clock_recovery_block_update_batch",
+    "segment_rows",
     "mmse_table",
     "max_symbols",
     "NTAIL",
@@ -268,3 +276,165 @@ def clock_recovery_block_batch(
         tail=CF32(xr[:, -NTAIL:].contiguous(), xi[:, -NTAIL:].contiguous()),
     )
     return CF32(sr.t().contiguous(), si.t().contiguous()), vd.t().contiguous(), new_state
+
+
+@torch.no_grad()
+def clock_recovery_block_update_batch(
+    x: CF32,
+    state: ClockRecoveryState,
+    params: ClockRecoveryParams,
+    num_slots: int,
+    chunk: int = 16,
+    interp: str = "mmse",
+    segments: int = 1,
+):
+    """Block-update M&M over one `(C, T)` CF32 block: the clock frozen for
+    each chunk of K = `chunk` symbol slots (slots jK .. jK+K-1 from slot 0).
+
+    At a chunk's start (mu, omega, ii) are frozen; symbol j of the chunk
+    lies at `mu + j*omega` past ii (floor: its first sample; the rest: the
+    interpolator's mu), valid while that first sample is below the limit.
+    The valid symbols, in order, take their errors against the carried
+    history (the lag-1 / lag-2 convention) and then
+
+        cum_j  = cum_{j-1} + e_j
+        om_j   = omega_mid + clip((omega + gain_omega*cum_j) - omega_mid, +-lim)
+        pos_j  = (pos_{j-1} + om_j) + gain_mu*e_j,   pos_{-1} = mu
+
+    and after the chunk ii += floor(pos), mu = pos - floor(pos) (ii kept
+    >= 0), omega = om of the last valid symbol, the history its last three
+    symbols.  That is the algorithm of the JAX package's
+    `clock_recovery_block_update_batch` and of its Pallas kernel with
+    `block_update=True`, in an order that makes K = 1 the exact recursion
+    (`clock_recovery_block_batch`) bit for bit, and that the CUDA kernel
+    (`csrc/clock.cu`) runs.  The interpolator is the exact form's at the
+    symbol's own mu.
+
+    With `segments` > 1 the block is the reference's chain of equal time
+    segments (`slot_budget` past 2^17 samples): a chunk counts symbols only
+    below its segment's end, and a chunk that finds none there moves to the
+    next segment, where the chunk grid starts again, as the reference's
+    segmented launches do; the slots stay one sequence.  The symbols of a
+    chunk cut short by a limit leave their slots invalid, so the valid mask
+    may have a gap where the next chunk goes on (the reference's layout):
+    take `soft[valid]`.  Returns `(symbols, valid, new_state)` as
+    `clock_recovery_block_batch`."""
+    check_interp(interp)
+    K = int(chunk)
+    if K < 1:
+        raise ValueError(f"chunk must be >= 1, got {K}")
+    taps = _mmse_rows if interp == "mmse" else _sinc_rows
+    f32 = lambda v: float(np.float32(v))
+    omega_mid = f32(params.omega)
+    omega_lim = f32(params.omega * params.omega_relative_limit)
+    gain_omega = f32(params.gain_omega)
+    gain_mu = f32(params.gain_mu)
+
+    xr = torch.cat([state.tail.re, x.re], dim=-1)          # (C, n)
+    xi = torch.cat([state.tail.im, x.im], dim=-1)
+    Cn, n = xr.shape
+    T = n - NTAIL
+    limit = n - INTERP_TAPS
+    segs, seg_rows = segment_rows(T, segments)
+    dev = xr.device
+    koff = torch.arange(INTERP_TAPS, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    steps = -(-num_slots // K)
+
+    jf = torch.arange(K, dtype=torch.float32, device=dev)[:, None]       # (K, 1)
+    jk = torch.arange(K, device=dev)[:, None]
+    rows = torch.arange(Cn, device=dev)[None, :, None]
+
+    def step(carry, xs):
+        (mu, omega, ii, lim, p1r, p2r, p3r, p1i, p2i, p3i,
+         c1r, c2r, c3r, c1i, c2i, c3i) = carry
+        (slot0,) = xs
+        for _ in range(segs - 1):
+            lim = torch.where((ii >= lim) & (lim < limit),
+                              torch.clamp(lim + seg_rows, max=limit), lim)
+        # The chunk's K symbols at once: positions, windows and interpolations
+        # depend on the frozen clock only; the valid ones are a prefix.
+        pj = mu[None] + jf * omega[None]                                   # (K, C)
+        ilf = torch.floor(pj)
+        base = ii[None] + ilf.to(torch.int64)
+        valid = (base < lim[None]) & (slot0 + jk < num_slots)
+        idx = torch.clamp(base, 0, limit - 1)[..., None] + koff           # (K, C, 8)
+        t = taps((pj - ilf).reshape(-1)).reshape(K, Cn, INTERP_TAPS)
+        wr = xr[rows, idx] * t
+        wi = xi[rows, idx] * t
+        p0r, p0i = wr[..., 0], wi[..., 0]
+        for k in range(1, INTERP_TAPS):
+            p0r = p0r + wr[..., k]
+            p0i = p0i + wi[..., k]
+        c0r = torch.where(p0r > 0, one, zero)
+        c0i = torch.where(p0i > 0, one, zero)
+        # Symbol j's lags one and two are entries j + 2 and j + 1 of the
+        # history extended by the chunk's symbols.
+        Ar = torch.cat([torch.stack([p3r, p2r, p1r]), p0r])               # (K+3, C)
+        Ai = torch.cat([torch.stack([p3i, p2i, p1i]), p0i])
+        Br = torch.cat([torch.stack([c3r, c2r, c1r]), c0r])
+        Bi = torch.cat([torch.stack([c3i, c2i, c1i]), c0i])
+        e = (
+            (p0r - Ar[1:K + 1]) * Br[2:K + 2]
+            + (p0i - Ai[1:K + 1]) * Bi[2:K + 2]
+            - ((c0r - Br[1:K + 1]) * Ar[2:K + 2] + (c0i - Bi[1:K + 1]) * Ai[2:K + 2])
+        )
+        e = torch.clamp(e, -1.0, 1.0)
+        # The loop filter's sums, in slot order (past the valid prefix they
+        # are never used).
+        cum, cums = torch.zeros_like(mu), []
+        for j in range(K):
+            cum = cum + e[j]
+            cums.append(cum)
+        om = omega_mid + torch.clamp((omega[None] + gain_omega * torch.stack(cums))
+                                     - omega_mid, -omega_lim, omega_lim)
+        gme = gain_mu * e
+        pos = mu
+        for j in range(K):
+            pos = torch.where(valid[j], (pos + om[j]) + gme[j], pos)
+        nv = valid.sum(0)                                                  # (C,)
+        last = lambda E, d: E.gather(0, (nv + 2 - d)[None]).squeeze(0)
+        om_last = torch.where(nv > 0, om.gather(0, (nv - 1).clamp(min=0)[None]).squeeze(0),
+                              omega)
+        p1r, p2r, p3r = last(Ar, 0), last(Ar, 1), last(Ar, 2)
+        p1i, p2i, p3i = last(Ai, 0), last(Ai, 1), last(Ai, 2)
+        c1r, c2r, c3r = last(Br, 0), last(Br, 1), last(Br, 2)
+        c1i, c2i, c3i = last(Bi, 0), last(Bi, 1), last(Bi, 2)
+        adv = torch.floor(pos)
+        ii = torch.clamp(ii + adv.to(torch.int64), min=0)
+        mu = pos - adv
+        return (mu, om_last, ii, lim, p1r, p2r, p3r, p1i, p2i, p3i,
+                c1r, c2r, c3r, c1i, c2i, c3i), (
+            torch.where(valid, p0r, zero), torch.where(valid, p0i, zero), valid)
+
+    sr = torch.zeros((steps, K, Cn), dtype=torch.float32, device=dev)
+    si = torch.zeros_like(sr)
+    vd = torch.zeros((steps, K, Cn), dtype=torch.bool, device=dev)
+    slot0 = torch.arange(steps, device=dev) * K
+    lim0 = torch.full((Cn,), NTAIL + seg_rows - INTERP_TAPS if segs > 1 else limit,
+                      dtype=torch.int64, device=dev)
+    (mu, omega, ii, _, p1r, p2r, p3r, p1i, p2i, p3i, c1r, c2r, c3r, c1i, c2i, c3i) = scan(
+        step,
+        (state.mu, state.omega, state.ii.to(torch.int64), lim0, *state.p.re.unbind(-1),
+         *state.p.im.unbind(-1), *state.c.re.unbind(-1), *state.c.im.unbind(-1)),
+        (slot0,), (sr, si, vd))
+    new_state = ClockRecoveryState(
+        mu=mu,
+        omega=omega,
+        ii=(ii - (n - NTAIL)).to(torch.int32),
+        p=CF32(torch.stack([p1r, p2r, p3r], -1), torch.stack([p1i, p2i, p3i], -1)),
+        c=CF32(torch.stack([c1r, c2r, c3r], -1), torch.stack([c1i, c2i, c3i], -1)),
+        tail=CF32(xr[:, -NTAIL:].contiguous(), xi[:, -NTAIL:].contiguous()),
+    )
+    flat = lambda a: a.reshape(steps * K, Cn)[:num_slots].t().contiguous()
+    return CF32(flat(sr), flat(si)), flat(vd), new_state
+
+
+def segment_rows(T: int, segments: int) -> tuple[int, int]:
+    """(segment count, rows a segment) of a T-sample block cut into
+    `segments` equal time segments (1 and T when there are none)."""
+    segs = int(segments)
+    if segs < 1 or T % segs:
+        raise ValueError(f"cannot cut a block of {T} samples into {segs} equal segments")
+    return segs, T // segs

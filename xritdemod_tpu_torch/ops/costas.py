@@ -17,6 +17,10 @@ This plain form loops over time in Python (vectorised over the leading
 axes; `ops/scan.py`); on the GPU the recursion runs inside the fused front end
 (`ops/frontend_cuda.py`) or, on the split path, as the standalone kernel
 `ops/stream_cuda.costas_block_kernel`, whose plain version `costas_block` is.
+
+`costas_block_update` is the slab form of `costas.costas_block_update`: a
+slab of K samples is rotated on a frozen ramp and the loop filter advances
+once a slab (K1's and K6's slab instances, whose plain version it is).
 """
 
 from __future__ import annotations
@@ -35,8 +39,11 @@ __all__ = [
     "CostasState",
     "costas_init",
     "costas_block",
+    "costas_block_update",
     "costas_gains",
+    "costas_slab_steps",
     "costas_steps",
+    "slab_wraps",
 ]
 
 
@@ -106,5 +113,81 @@ def costas_block(x: CF32, state: CostasState, params: CostasParams):
     """
     yr_t, yi_t, new_state = costas_steps(
         x.re.movedim(-1, 0), x.im.movedim(-1, 0), state, params
+    )
+    return CF32(yr_t.movedim(0, -1), yi_t.movedim(0, -1)), new_state
+
+
+def slab_wraps(params: CostasParams, chunk: int) -> int:
+    """Conditional +-2pi steps after a slab of `chunk` samples: enough for
+    the largest phase advance a slab can make (the JAX package's rule)."""
+    advance = chunk * max(abs(params.freq_min), abs(params.freq_max)) + float(
+        chunk * (params.alpha + params.beta * chunk))
+    return int(math.ceil(advance / (2.0 * math.pi))) + 1
+
+
+def costas_slab_steps(xr_t, xi_t, state: CostasState, params: CostasParams, chunk: int):
+    """The slab form over time-major `(T, ...)` planes, T a multiple of
+    `chunk`; returns the rotated planes and the new state.
+
+    Slab sample k (k < K = `chunk`) is rotated by `phase + k*freq` with the
+    slab's first phase and freq, its error `e_k` taken as in `costas_steps`,
+    and the loop filter then advances once:
+
+        s = sum_k e_k,  r = sum_k (K-1-k) e_k       (both summed in k order)
+        freq'  = clip(freq + beta*s)
+        phase' = ((phase + freq') + ((K-1)*freq + beta*r)) + alpha*s
+
+    then `slab_wraps` conditional +-2pi steps.  This is the JAX package's
+    `phase + K*freq + sum_k (alpha + beta*(K-k)) e_k` written so that K = 1
+    is `costas_steps` bit for bit (the clipped freq' enters the phase, as in
+    the exact step; the two differ only when the freq clip binds), and in
+    the order the CUDA kernels compute it (`csrc/loops.cuh`)."""
+    T = xr_t.shape[0]
+    K = int(chunk)
+    if K < 1 or T % K:
+        raise ValueError(f"block length {T} not a multiple of chunk {K}")
+    alpha = float(np.float32(params.alpha))
+    beta = float(np.float32(params.beta))
+    nwrap = slab_wraps(params, K)
+    dev = xr_t.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    lead = (1,) * (xr_t.ndim - 1)
+    kf = torch.arange(K, dtype=torch.float32, device=dev).reshape((K,) + lead)
+    wf = [float(K - 1 - k) for k in range(K)]
+
+    def step(carry, x):
+        (phase, freq), (xr, xi) = carry, x                  # xr: (K, ...)
+        ph = phase[None] + kf * freq[None]
+        c = torch.cos(ph)
+        s = torch.sin(ph)
+        yr = xr * c + xi * s
+        yi = xi * c - xr * s
+        err = torch.clamp(yr * yi, -1.0, 1.0)
+        esum = torch.zeros_like(phase)
+        rsum = torch.zeros_like(phase)
+        for k in range(K):
+            esum = esum + err[k]
+            rsum = rsum + wf[k] * err[k]
+        fnew = torch.clamp(freq + beta * esum, params.freq_min, params.freq_max)
+        phase = ((phase + fnew) + ((K - 1) * freq + beta * rsum)) + alpha * esum
+        for _ in range(nwrap):
+            phase = phase - torch.where(phase > _TWO_PI, _TWO_PI, zero)
+            phase = phase + torch.where(phase < -_TWO_PI, _TWO_PI, zero)
+        return (phase, fnew), (yr, yi)
+
+    shape = (T // K, K) + tuple(xr_t.shape[1:])
+    yr_t = torch.empty(shape, dtype=xr_t.dtype, device=dev)
+    yi_t = torch.empty_like(yr_t)
+    phase, freq = scan(step, (state.phase, state.freq),
+                       (xr_t.reshape(shape), xi_t.reshape(shape)), (yr_t, yi_t))
+    return yr_t.reshape(xr_t.shape), yi_t.reshape(xi_t.shape), CostasState(phase, freq)
+
+
+@torch.no_grad()
+def costas_block_update(x: CF32, state: CostasState, params: CostasParams, chunk: int = 8):
+    """The slab form (`costas_slab_steps`) over a `(..., T)` CF32 block, T a
+    multiple of `chunk`.  Returns `(y, new_state)`."""
+    yr_t, yi_t, new_state = costas_slab_steps(
+        x.re.movedim(-1, 0), x.im.movedim(-1, 0), state, params, chunk
     )
     return CF32(yr_t.movedim(0, -1), yi_t.movedim(0, -1)), new_state

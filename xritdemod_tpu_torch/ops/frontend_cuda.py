@@ -1,7 +1,14 @@
 """Fused demodulator front end: AGC -> RRC FIR -> Costas on `(T, C)` planes.
 
 Replaces `xritdemod_tpu/ops/frontend_pallas.py::demod_frontend_pallas`
-(`_frontend_kernel`), exact per-sample forms (its `block_k=0`, float32).
+(`_frontend_kernel`), in each of its forms: the exact per-sample recursions
+(`block_k=0`, float32), the K-row slab form (`block_k=K`: the AGC as an
+affine prefix over K-row slabs, `ops/agc.agc_slab_gains`, and the Costas
+loop as the frozen-ramp slab update, `ops/costas.costas_slab_steps`), and
+the bf16 matched filter (`precision="bf16"`: each AGC output and tap rounded
+to bfloat16 before its product, products and sums in float32).  One kernel
+template, `frontend_kernel<TR, SLAB, BF16>`; `launches` counts the exact
+form, `launches_form[(block_k, precision)]` each of the others.
 The kernel is `csrc/frontend.cu`: one launch, one block per 32 channels,
 whose warps are the stages of a pipeline over shared-memory tiles (loader,
 magnitudes, AGC gain chain, six FIR warps, Costas chain, store), handed on
@@ -15,9 +22,15 @@ recursion, T dependent steps on one warp; the design takes all other work
 off that warp and off its scheduler, so the kernel runs at the pace of that
 chain alone.
 
-The plain version below composes the exact recursions of `ops/agc.py` and
-`ops/costas.py` with the same tap order; a CPU tensor takes it, a CUDA
-tensor takes the kernel.
+With `block_k` K the two chains walk a slab, not a sample: the AGC warp's
+prefix is log2 K passes over the slab (K log2 K operations), the Costas
+warp's K rotations are independent of each other.  The tile holds whole
+slabs: 48 samples where K divides 48, 64 (eight FIR warps) where K divides
+64; other K raise on the card.
+
+The plain version below composes the recursions of `ops/agc.py` and
+`ops/costas.py` (exact or slab) with the same tap order; a CPU tensor takes
+it, a CUDA tensor takes the kernel.
 """
 
 from __future__ import annotations
@@ -29,18 +42,53 @@ import numpy as np
 import torch
 
 from xritdemod_tpu_torch import _build
-from xritdemod_tpu_torch.ops.agc import AgcParams, agc_gains
-from xritdemod_tpu_torch.ops.costas import CostasParams, CostasState, costas_steps
+from xritdemod_tpu_torch.ops.agc import AgcParams, agc_gains, agc_slab_gains
+from xritdemod_tpu_torch.ops.costas import (
+    CostasParams, CostasState, costas_slab_steps, costas_steps, slab_wraps,
+)
 from xritdemod_tpu_torch.utils.cplx import CF32
 
-__all__ = ["demod_frontend", "demod_frontend_plain", "trig_mismatches", "launches"]
+__all__ = ["demod_frontend", "demod_frontend_plain", "trig_mismatches", "launches",
+           "launches_form", "PRECISIONS", "roles", "tile_rows"]
 
-launches = 0
+launches = 0          # the exact form
+launches_form: dict = {}   # the slab and bf16 forms, by (block_k, precision)
 
-# The kernel's warps in order of warp index (`enum Role` of csrc/frontend.cu);
-# None for a warp that leaves at once.  Names the rows of a stage-clock read.
-ROLES = ("fir0", "fir1", "fir2", "costas", "fir3", "fir4", "fir5", None,
-         "loader", "mag", "agc", None, "store")
+# The filter's precisions: "highest" is float32; "bf16" rounds its operands.
+PRECISIONS = ("highest", "bf16")
+
+
+def tile_rows(block_k: int) -> int:
+    """Samples a tile of the kernel's instance for `block_k` (0: exact)."""
+    if block_k == 0 or 48 % block_k == 0:
+        return 48
+    if 64 % block_k == 0:
+        return 64
+    raise ValueError(f"the front-end kernel's slab form needs block_k dividing 48 or 64, "
+                     f"got {block_k}")
+
+
+def roles(block_k: int = 0) -> tuple:
+    """The kernel's warps in order of warp index (`Layout` of
+    csrc/frontend.cu), for the instance of `block_k`; None for a warp that
+    leaves at once.  Names the rows of a stage-clock read."""
+    fir = tile_rows(block_k) // 8
+    out, n = [], 0
+    names = [f"fir{k}" for k in range(fir)] + ["loader", "mag", "agc", "store"]
+    while n < len(names):
+        w = len(out)
+        if w % 4 == 3:
+            out.append("costas" if w == 3 else None)
+        else:
+            out.append(names[n])
+            n += 1
+    if block_k:              # the slab forms' AGC warp sits beside the Costas warp
+        out = [None if r == "agc" else r for r in out]
+        out[7] = "agc"
+    return tuple(out)
+
+
+ROLES = roles(0)
 
 
 def _fir_cl(ext: torch.Tensor, taps: torch.Tensor, T: int) -> torch.Tensor:
@@ -55,7 +103,7 @@ def _fir_cl(ext: torch.Tensor, taps: torch.Tensor, T: int) -> torch.Tensor:
 def demod_frontend_plain(
     x: CF32, gain, rrc_hist: CF32, costas_state: CostasState,
     agc: AgcParams, taps: torch.Tensor, costas: CostasParams,
-    stages: dict | None = None,
+    stages: dict | None = None, block_k: int = 0, precision: str = "highest",
 ):
     """Plain PyTorch version of `demod_frontend` (same contract).
 
@@ -65,19 +113,32 @@ def demod_frontend_plain(
     what the standalone AGC and Costas stages (`ops/stream_cuda.py`) give
     and take — and `seconds`, the wall time of each stage.
     """
+    _check_form(block_k, precision)
     T = x.re.shape[0]
     nh = taps.shape[0] - 1
     clock = _StageClock(x.re.device) if stages is not None else None
-    gains, new_gain = agc_gains(x.abs(), gain, agc)
+    if block_k:
+        gains, new_gain = agc_slab_gains(x.abs(), gain, agc, block_k)
+    else:
+        gains, new_gain = agc_gains(x.abs(), gain, agc)
     er = torch.cat([rrc_hist.re.t(), x.re * gains])       # (nh+T, C)
     ei = torch.cat([rrc_hist.im.t(), x.im * gains])
     if clock:
         clock.mark("agc")
-    fr = _fir_cl(er, taps, T)
-    fi = _fir_cl(ei, taps, T)
+    if precision == "bf16":
+        # Operands rounded to nearest even; their products are exact.
+        bf = lambda t: t.to(torch.bfloat16).to(torch.float32)
+        fr = _fir_cl(bf(er), bf(taps), T)
+        fi = _fir_cl(bf(ei), bf(taps), T)
+    else:
+        fr = _fir_cl(er, taps, T)
+        fi = _fir_cl(ei, taps, T)
     if clock:
         clock.mark("fir")
-    yr, yi, new_costas = costas_steps(fr, fi, costas_state, costas)
+    if block_k:
+        yr, yi, new_costas = costas_slab_steps(fr, fi, costas_state, costas, block_k)
+    else:
+        yr, yi, new_costas = costas_steps(fr, fi, costas_state, costas)
     if clock:
         clock.mark("costas")
         stages.update(agc=CF32(er[nh:], ei[nh:]), fir=CF32(fr, fi), seconds=clock.seconds)
@@ -102,12 +163,20 @@ class _StageClock:
         self.seconds[name], self._t = now - self._t, now
 
 
-def _lib():
-    fn = _build.load("frontend").xrit_frontend
+def _check_form(block_k: int, precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if block_k < 0:
+        raise ValueError(f"block_k must be >= 0, got {block_k}")
+
+
+def _lib(form: bool):
+    lib = _build.load("frontend")
+    fn = lib.xrit_frontend_form if form else lib.xrit_frontend
     if not fn.argtypes:
         fn.argtypes = (
             [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
-            + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+            + [ctypes.c_float] * 7 + [ctypes.c_int] * (3 if form else 0) + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
@@ -140,6 +209,7 @@ def trig_mismatches(lo: float, hi: float, n: int, device) -> int:
 def demod_frontend(
     x: CF32, gain, rrc_hist: CF32, costas_state: CostasState,
     agc: AgcParams, taps: torch.Tensor, costas: CostasParams,
+    block_k: int = 0, precision: str = "highest",
 ):
     """AGC -> RRC -> Costas over a channels-last `(T, C)` block.
 
@@ -149,13 +219,24 @@ def demod_frontend(
       rrc_hist: `(C, N-1)` CF32 FIR history (the last N-1 AGC outputs).
       costas_state: `(C,)` phase/freq.
       taps: `(N,)` float32 RRC taps on the block's device.
+      block_k: 0 for the exact recursions, K > 0 for the slab forms (T a
+        multiple of K).
+      precision: "highest" (float32) or "bf16" (the filter's operands
+        rounded to bfloat16).
 
     Returns `(y, gain', rrc_hist', costas_state')` with `y` `(T, C)` CF32.
     """
     global launches
+    _check_form(block_k, precision)
     if not x.re.is_cuda:
-        return demod_frontend_plain(x, gain, rrc_hist, costas_state, agc, taps, costas)
+        return demod_frontend_plain(x, gain, rrc_hist, costas_state, agc, taps, costas,
+                                    block_k=block_k, precision=precision)
     T, C = x.re.shape
+    form = bool(block_k) or precision == "bf16"
+    if block_k:
+        tile_rows(block_k)
+        if T % block_k:
+            raise ValueError(f"front end: block length {T} not a multiple of block_k {block_k}")
     N = int(taps.shape[0])
     nh = N - 1
     dev = x.re.device
@@ -180,8 +261,10 @@ def demod_frontend(
     gain_out = torch.empty_like(gain)
     phase_out = torch.empty_like(gain)
     freq_out = torch.empty_like(gain)
+    extra = (block_k, slab_wraps(costas, block_k) if block_k else 0,
+             int(precision == "bf16")) if form else ()
     with _build.launch_on(xr) as stream:
-        err = _lib()(
+        err = _lib(form)(
             xr.data_ptr(), xi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
             hr_out.data_ptr(), hi_out.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             taps_c.data_ptr(), gain_c.data_ptr(), gain_out.data_ptr(),
@@ -191,8 +274,12 @@ def demod_frontend(
             _f32(agc.rate), _f32(agc.reference), _f32(agc.max_gain),
             _f32(costas.alpha), _f32(costas.beta),
             _f32(costas.freq_min), _f32(costas.freq_max),
-            stream,
+            *extra, stream,
         )
-    _build.check(err, "xrit_frontend")
-    launches += 1
+    _build.check(err, "xrit_frontend_form" if form else "xrit_frontend")
+    if form:
+        key = (block_k, precision)
+        launches_form[key] = launches_form.get(key, 0) + 1
+    else:
+        launches += 1
     return CF32(yr, yi), gain_out, CF32(hr_out, hi_out), CostasState(phase_out, freq_out)

@@ -16,8 +16,12 @@ bound by bytes (append: the new symbols once; extract: the ring once).
     a new ring.  A channel with fewer than `pos+E` symbols is left untouched,
     reports not-ok and hands back `ring[c, :E]`.
 
-Invariant maintained: `ring[c, fill[c]:] == 0`.  The plain versions below
-serve CPU tensors; a CUDA tensor takes the kernels.
+Invariant maintained: `ring[c, fill[c]:] == 0`.  The ring is float32 or
+bfloat16 (the Pallas kernels' narrow ring: half the bytes): the append
+rounds the float32 symbols to the ring's type, to nearest even, and the
+extract hands out float32 (a bf16 value widens exactly), as the Pallas
+kernels convert at the edge.  The plain versions below serve CPU tensors; a
+CUDA tensor takes the kernels.
 """
 
 from __future__ import annotations
@@ -35,10 +39,17 @@ __all__ = [
     "ring_extract_plain",
     "launches_append",
     "launches_extract",
+    "launches_append_bf16",
+    "launches_extract_bf16",
+    "RING_DTYPES",
 ]
 
 launches_append = 0
 launches_extract = 0
+launches_append_bf16 = 0      # on a bfloat16 ring
+launches_extract_bf16 = 0
+
+RING_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @torch.no_grad()
@@ -69,10 +80,12 @@ def ring_extract_plain(ring, fill, pos, extract: int):
     lane = torch.arange(L, device=ring.device)[None, :]
     shifted = torch.gather(ring, 1, (drop[:, None] + lane).clamp(max=L - 1))
     ring2 = torch.where(lane < new_fill[:, None], shifted, 0.0)
-    return ring2, new_fill, out, ok
+    return ring2, new_fill, out.to(torch.float32), ok
 
 
-def _fn(name: str, nptr: int):
+def _fn(name: str, nptr: int, ring: torch.Tensor):
+    if ring.dtype == torch.bfloat16:
+        name += "_bf16"
     fn = getattr(_build.load("ring"), name)
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -81,8 +94,8 @@ def _fn(name: str, nptr: int):
 
 
 def _check(ring, fill, *others):
-    if ring.dtype != torch.float32 or ring.ndim != 2 or not ring.is_contiguous():
-        raise ValueError("ring must be a contiguous (C, L) float32 tensor")
+    if ring.dtype not in RING_DTYPES or ring.ndim != 2 or not ring.is_contiguous():
+        raise ValueError("ring must be a contiguous (C, L) float32 or bfloat16 tensor")
     for t in (fill, *others):
         if t.dtype != torch.int32 or t.shape != (ring.shape[0],) or t.device != ring.device:
             raise ValueError("fill/pos/n_new must be (C,) int32 on the ring's device")
@@ -93,7 +106,7 @@ def ring_append(ring, fill, new, n_new):
     """Append `new[c, :n_new[c]]` at each channel's fill offset, in place.
 
     Args:
-      ring: `(C, L)` float32 symbol buffer (slots >= fill zero).
+      ring: `(C, L)` float32 or bfloat16 symbol buffer (slots >= fill zero).
       fill: `(C,)` int32 symbol counts.
       new: `(C, S)` float32 dense new symbols (past `n_new` is ignored).
       n_new: `(C,)` int32 valid counts, `n_new <= S`.
@@ -101,7 +114,7 @@ def ring_append(ring, fill, new, n_new):
     Returns `(ring, fill', overflowed (C,) bool)`; an overflowing channel
     drops the entire incoming block.
     """
-    global launches_append
+    global launches_append, launches_append_bf16
     if not ring.is_cuda:
         return ring_append_plain(ring, fill, new, n_new)
     _check(ring, fill, n_new)
@@ -112,13 +125,16 @@ def ring_append(ring, fill, new, n_new):
     fill_out = torch.empty_like(fill)
     ovf = torch.empty_like(fill)
     with _build.launch_on(ring) as stream:
-        err = _fn("xrit_ring_append", 6)(
+        err = _fn("xrit_ring_append", 6, ring)(
             ring.data_ptr(), new.data_ptr(), fill.data_ptr(),
             n_new.data_ptr(), fill_out.data_ptr(), ovf.data_ptr(),
             C, L, new.shape[1], stream,
         )
     _build.check(err, "xrit_ring_append")
-    launches_append += 1
+    if ring.dtype == torch.bfloat16:
+        launches_append_bf16 += 1
+    else:
+        launches_append += 1
     return ring, fill_out, ovf.bool()
 
 
@@ -126,10 +142,11 @@ def ring_append(ring, fill, new, n_new):
 def ring_extract(ring, fill, pos, extract: int):
     """Pop `extract` symbols starting at each channel's `pos`.
 
-    Returns `(ring', fill', out (C, E), ok (C,) bool)`; a channel with fewer
-    than `pos+E` symbols is untouched (`ok=False`, `out = ring[c, :E]`).
+    Returns `(ring', fill', out (C, E) float32, ok (C,) bool)`; a channel
+    with fewer than `pos+E` symbols is untouched (`ok=False`,
+    `out = ring[c, :E]`).
     """
-    global launches_extract
+    global launches_extract, launches_extract_bf16
     if not ring.is_cuda:
         return ring_extract_plain(ring, fill, pos, extract)
     _check(ring, fill, pos)
@@ -139,15 +156,18 @@ def ring_extract(ring, fill, pos, extract: int):
         raise ValueError(f"extract {E} exceeds ring length {L}")
     fill, pos = fill.contiguous(), pos.contiguous()
     ring_out = torch.empty_like(ring)
-    out = torch.empty((C, E), dtype=ring.dtype, device=ring.device)
+    out = torch.empty((C, E), dtype=torch.float32, device=ring.device)
     fill_out = torch.empty_like(fill)
     ok = torch.empty_like(fill)
     with _build.launch_on(ring) as stream:
-        err = _fn("xrit_ring_extract", 7)(
+        err = _fn("xrit_ring_extract", 7, ring)(
             ring.data_ptr(), fill.data_ptr(), pos.data_ptr(),
             ring_out.data_ptr(), out.data_ptr(), fill_out.data_ptr(), ok.data_ptr(),
             C, L, E, stream,
         )
     _build.check(err, "xrit_ring_extract")
-    launches_extract += 1
+    if ring.dtype == torch.bfloat16:
+        launches_extract_bf16 += 1
+    else:
+        launches_extract += 1
     return ring_out, fill_out, out, ok.bool()

@@ -17,8 +17,15 @@ store warp (for the AGC also `x * gain`), handed on through `mbarrier`s.
 `ROLES` names each kernel's warps.  The per-sample arithmetic is
 `csrc/loops.cuh`, shared with the fused front end.
 
-The plain versions are `ops/agc.agc_block` and `ops/costas.costas_block`; a
-CPU tensor takes them, a CUDA tensor takes the kernels.
+`costas_block_kernel(..., chunk=K)` launches the Costas kernel's slab form
+(the Pallas fused kernel's `block_k`, here on the split path's `(C, T)`
+layout): K rotations on the slab's frozen ramp, one loop update a slab
+(`csrc/loops.cuh`, shared with the fused front end); `launches_costas_slab`
+counts it.
+
+The plain versions are `ops/agc.agc_block`, `ops/costas.costas_block` and
+`ops/costas.costas_block_update`; a CPU tensor takes them, a CUDA tensor
+takes the kernels.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ import torch
 
 from xritdemod_tpu_torch import _build
 from xritdemod_tpu_torch.ops.agc import AgcParams, agc_block
-from xritdemod_tpu_torch.ops.costas import CostasParams, CostasState, costas_block
+from xritdemod_tpu_torch.ops.costas import (
+    CostasParams, CostasState, costas_block, costas_block_update, slab_wraps,
+)
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = [
@@ -39,10 +48,12 @@ __all__ = [
     "costas_block_kernel",
     "launches_agc",
     "launches_costas",
+    "launches_costas_slab",
 ]
 
 launches_agc = 0
 launches_costas = 0
+launches_costas_slab = 0
 
 # Each kernel's warps in order of warp index (`enum Role` of csrc/stream.cu;
 # a warp's scheduler is its index mod 4); None for a warp that leaves at
@@ -50,15 +61,16 @@ launches_costas = 0
 ROLES = {
     "agc_block": ("loader", "mag", "store", "agc", "mag", "mag"),
     "costas_block": ("loader", None, "store", "costas"),
+    "costas_slab": ("loader", None, "store", "costas"),
 }
 
 
-def _fn(name: str, nptr: int, nfloat: int):
+def _fn(name: str, nptr: int, nfloat: int, nint: int = 0):
     fn = getattr(_build.load("stream"), name)
     if not fn.argtypes:
         fn.argtypes = (
             [ctypes.c_void_p] * nptr + [ctypes.c_int] * 2
-            + [ctypes.c_float] * nfloat + [ctypes.c_void_p]
+            + [ctypes.c_float] * nfloat + [ctypes.c_int] * nint + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
@@ -106,27 +118,38 @@ def agc_block_kernel(x: CF32, gain: torch.Tensor, params: AgcParams):
 
 
 @torch.no_grad()
-def costas_block_kernel(x: CF32, state: CostasState, params: CostasParams):
-    """Exact sequential Costas loop over a `(C, T)` CF32 block with `(C,)`
-    carried phase and freq; drop-in for `costas.costas_block` at that shape.
-    Returns `(y, state')`."""
-    global launches_costas
+def costas_block_kernel(x: CF32, state: CostasState, params: CostasParams, chunk: int = 0):
+    """Costas loop over a `(C, T)` CF32 block with `(C,)` carried phase and
+    freq: the exact sequential recursion (drop-in for `costas.costas_block`),
+    or with `chunk` K > 0 the slab form (drop-in for
+    `costas.costas_block_update`, T a multiple of K).  Returns
+    `(y, state')`."""
+    global launches_costas, launches_costas_slab
+    K = int(chunk)
     if not x.re.is_cuda:
+        if K:
+            return costas_block_update(x, state, params, K)
         return costas_block(x, state, params)
     C, T = _check("costas_block_kernel", x, state.phase, state.freq)
+    if K < 0 or (K and T % K):
+        raise ValueError(f"costas_block_kernel: block length {T} not a multiple of chunk {K}")
     xr, xi = x.re.contiguous(), x.im.contiguous()
     ph_in, fr_in = state.phase.contiguous(), state.freq.contiguous()
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     ph_out, fr_out = torch.empty_like(ph_in), torch.empty_like(fr_in)
+    ptrs = (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            ph_in.data_ptr(), fr_in.data_ptr(), ph_out.data_ptr(), fr_out.data_ptr())
+    gains = (_f32(params.alpha), _f32(params.beta),
+             _f32(params.freq_min), _f32(params.freq_max))
+    name = "xrit_costas_slab" if K else "xrit_costas_block"
     with _build.launch_on(xr) as stream:
-        err = _fn("xrit_costas_block", 8, 4)(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            ph_in.data_ptr(), fr_in.data_ptr(), ph_out.data_ptr(), fr_out.data_ptr(),
-            C, T,
-            _f32(params.alpha), _f32(params.beta),
-            _f32(params.freq_min), _f32(params.freq_max),
-            stream,
-        )
-    _build.check(err, "xrit_costas_block")
-    launches_costas += 1
+        if K:
+            err = _fn(name, 8, 4, 2)(*ptrs, C, T, *gains, K, slab_wraps(params, K), stream)
+        else:
+            err = _fn(name, 8, 4)(*ptrs, C, T, *gains, stream)
+    _build.check(err, name)
+    if K:
+        launches_costas_slab += 1
+    else:
+        launches_costas += 1
     return CF32(yr, yi), CostasState(phase=ph_out, freq=fr_out)

@@ -73,7 +73,10 @@ class TimeBlockDemodulator:
         self.decode_overlap = decode_overlap
         self.n_devices = len(mesh)
         self.halo = halo
-        split = dataclasses.replace(config, frontend_kernel="split")
+        # The serial path's stages in their exact forms, as the reference's
+        # rows run `_block`, whatever block updates the config names.
+        split = dataclasses.replace(config, frontend_kernel="split", clock_block_update=0,
+                                    frontend_block_update=0, frontend_precision="highest")
         self._demods = {d: Demodulator(split, halo + block_len, device=d)
                         for d in dict.fromkeys(mesh.devices)}
         self.num_slots = self._demods[mesh.devices[0]].num_slots

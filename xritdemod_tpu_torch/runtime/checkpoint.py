@@ -12,6 +12,12 @@ each NamedTuple's field order, which is the order in which the JAX package's
 by its fields): a checkpoint written by either package loads into the
 other's state of the same config.  The `__treedef__` entry describes the
 structure for a reader; neither loader needs it.
+
+A bfloat16 leaf (the fused receiver's narrow ring) is written widened to
+float32, which is exact and which the JAX package's loader casts back to its
+bfloat16 leaf (it cannot cast the 2-byte pattern numpy stores for its own
+bfloat16 arrays); read into a bfloat16 leaf, float32 values narrow exactly,
+and the JAX package's 2-byte patterns are taken as bfloat16 bits.
 """
 
 from __future__ import annotations
@@ -65,7 +71,10 @@ def _rebuild(like, leaves):
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.to(torch.float32)
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
@@ -103,7 +112,11 @@ def load_state(path: str, like):
                 raise ValueError(
                     f"leaf {i}: checkpoint shape {stored.shape} != {tuple(leaf.shape)}"
                 )
-            value = torch.from_numpy(np.array(stored, copy=True))
+            if leaf.dtype == torch.bfloat16 and stored.dtype.kind == "V":
+                bits = torch.from_numpy(np.ascontiguousarray(stored).view(np.int16).copy())
+                value = bits.view(torch.bfloat16)
+            else:
+                value = torch.from_numpy(np.array(stored, copy=True))
             new_leaves.append(value.to(device=leaf.device, dtype=leaf.dtype))
         else:
             new_leaves.append(np.asarray(stored, getattr(leaf, "dtype", None)))

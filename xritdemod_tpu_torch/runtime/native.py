@@ -12,7 +12,9 @@ interop) may all want the library at once.  The build runs under an
 exclusive file lock, to a private name that is renamed into place, so every
 process loads a whole library and none gives up because another was halfway
 through.  Everything has a pure-Python fallback (`available()` gates
-callers): without `g++` the rings are Python's.
+callers): without `g++` the rings are Python's.  Why the library is not
+there is kept: `last_error()` names the missing compiler, or gives the
+compiler's exit code and the end of its messages, or the loader's error.
 """
 
 from __future__ import annotations
@@ -28,16 +30,21 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load", "available", "library_path", "NativeRing", "quantize_symbols_native"]
+__all__ = ["load", "available", "last_error", "library_path", "NativeRing",
+           "quantize_symbols_native"]
 
 _SOURCE = Path(__file__).resolve().parents[2] / "native" / "xrit_io.cpp"
 # No -march=native: a library built on one host must load on another that
-# shares the checkout's files.
-_CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-shared"]
+# shares the checkout's files.  The source calls std::min without including
+# <algorithm>, which some libstdc++ versions bring in through the other
+# headers it includes and others do not (the GCC of the GPU machines refuses
+# it): the header is included by flag, the shared source left as it is.
+_CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-shared", "-include", "algorithm"]
 
 _lib = None
 _lock = threading.Lock()
 _tried = False
+_error: str | None = None
 
 
 def library_path() -> Path:
@@ -65,15 +72,19 @@ def _build(lib: Path) -> None:
     caller holds the build lock."""
     if not _stale(lib):
         return
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the native host library cannot be built")
+    cxx = os.environ.get("CXX") or "g++"
+    exe = shutil.which(cxx)
+    if exe is None:
+        raise RuntimeError(f"{cxx} not found: the native host library cannot be built")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     try:
-        subprocess.run(
-            [cxx, *_CXX_FLAGS, "-o", str(tmp), str(_SOURCE), "-lpthread"],
-            check=True, capture_output=True, timeout=120,
+        done = subprocess.run(
+            [exe, *_CXX_FLAGS, "-o", str(tmp), str(_SOURCE), "-lpthread"],
+            capture_output=True, text=True, timeout=120,
         )
+        if done.returncode != 0:
+            tail = "\n".join((done.stderr or done.stdout).strip().splitlines()[-8:])
+            raise RuntimeError(f"{cxx} exited with {done.returncode}: {tail}")
         os.replace(tmp, lib)
     finally:
         tmp.unlink(missing_ok=True)
@@ -116,8 +127,9 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load() -> ctypes.CDLL | None:
-    """Load (building if needed) the native library; None if unavailable."""
-    global _lib, _tried
+    """Load (building if needed) the native library; None if unavailable,
+    and then `last_error()` says why."""
+    global _lib, _tried, _error
     with _lock:
         if _lib is not None or _tried:
             return _lib
@@ -128,16 +140,26 @@ def load() -> ctypes.CDLL | None:
             with _file_lock(lib_path.with_suffix(".lock")):
                 _build(lib_path)
             lib = ctypes.CDLL(str(lib_path))
-            if lib.xrit_io_abi_version() != 1:
+            version = lib.xrit_io_abi_version()
+            if version != 1:
+                _error = f"{lib_path} has ABI version {version}, not 1"
                 return None
             _lib = _configure(lib)
-        except (OSError, RuntimeError, subprocess.SubprocessError):
+            _error = None
+        except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
             _lib = None
+            _error = f"{type(exc).__name__}: {exc}"
         return _lib
 
 
 def available() -> bool:
     return load() is not None
+
+
+def last_error() -> str | None:
+    """Why the last `load()` found no library (None after a success, or
+    before any attempt)."""
+    return _error
 
 
 def _fptr(a: np.ndarray):
