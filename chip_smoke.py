@@ -58,8 +58,17 @@ the fold path's kernels held against their plain versions at C = 128;
 the channel axis, the time-block axis (its split kernels held against their
 plain versions on its rows, past 2^17 samples) and the sharded fused
 receive on a mesh of four `cuda:0` entries against their unsharded
-counterparts; two `tools/dist_worker.py` ranks over `gloo`); and the roll probe
-(`tools/roll_probe.py`).
+counterparts; two `tools/dist_worker.py` ranks over `gloo`); the repo's
+measuring tools, ported (`tools`: `ber_sweep` on BER_SWEEP_r05's points,
+LRIT in its two decoder variants, every frame bit-exact from -1 dB, and HRIT,
+from 4 dB and below it the JAX tool's own frames;
+`viterbi_margin_sweep` on VITERBI_MARGIN_r04's grid, the segmented Viterbi
+bit-equal to the exact one; `interp_margin` at C = 128, both interpolators
+within the JAX tool's rule and 128 of 128 channels full at sigma 0.01;
+`scaling_sweep` over channels and a mesh of `cuda:0` entries; the per-stage
+profilers of the fused receive, the decode, the demod chains, the clock and
+front-end kernels and the host's budget; `drive_demod`'s checks; each
+tool's launches counted apart); and the roll probe (`tools/roll_probe.py`).
 Every phase prints one JSON line; any failure exits non-zero.  The last line
 is `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
@@ -119,7 +128,7 @@ from xritdemod_tpu_torch.runtime.apps import DemodulatorApp, ReceiverApp
 from xritdemod_tpu_torch.runtime.config import demod_config_from_file
 from xritdemod_tpu_torch.runtime import native
 from xritdemod_tpu_torch.runtime.frontends import CFileFrontend
-from xritdemod_tpu_torch.tools import dist_worker, interop_run, long_soak, roll_probe
+from xritdemod_tpu_torch.tools import dist_worker, interop_run, long_soak, roll_probe, timing
 from xritdemod_tpu_torch.utils.cplx import (
     CF32, dequantize_iq_s8, from_complex, quantize_iq_s8, to_complex,
 )
@@ -866,45 +875,11 @@ def check_roll() -> dict:
 
 def reset_counts() -> None:
     clock_cuda.out_of_ring_symbols(DEV, reset=True)
-    frontend_cuda.launches = 0
-    frontend_cuda.launches_form.clear()
-    clock_cuda.launches = 0
-    clock_cuda.launches_sinc = 0
-    clock_cuda.launches_bu = 0
-    clock_cuda.launches_bu_sinc = 0
-    viterbi_cuda.launches = 0
-    ring_cuda.launches_append = 0
-    ring_cuda.launches_extract = 0
-    ring_cuda.launches_append_bf16 = 0
-    ring_cuda.launches_extract_bf16 = 0
-    stream_cuda.launches_agc = 0
-    stream_cuda.launches_costas = 0
-    stream_cuda.launches_costas_slab = 0
-    roll_probe.launches = 0
+    timing.reset_launches()
 
 
-# The front end's forms by row name: (block_k, precision).
-FRONTEND_FORMS = {"frontend_bk8_bf16": (8, "bf16"), "frontend_bk8": (8, "highest"),
-                  "frontend_bf16": (0, "bf16")}
-
-
-def read_counts() -> dict:
-    forms = dict(frontend_cuda.launches_form)
-    out = dict(
-        frontend=frontend_cuda.launches, clock=clock_cuda.launches,
-        clock_sinc=clock_cuda.launches_sinc, viterbi=viterbi_cuda.launches,
-        ring_append=ring_cuda.launches_append, ring_extract=ring_cuda.launches_extract,
-        agc_block=stream_cuda.launches_agc, costas_block=stream_cuda.launches_costas,
-        roll=roll_probe.launches,
-        clock_bu=clock_cuda.launches_bu, clock_bu_sinc=clock_cuda.launches_bu_sinc,
-        costas_slab=stream_cuda.launches_costas_slab,
-        ring_append_bf16=ring_cuda.launches_append_bf16,
-        ring_extract_bf16=ring_cuda.launches_extract_bf16,
-    )
-    for name, key in FRONTEND_FORMS.items():
-        out[name] = forms.pop(key, 0)
-    out["frontend_other_forms"] = sum(forms.values())
-    return out
+read_counts = timing.launch_counts
+FRONTEND_FORMS = timing.FRONTEND_FORMS
 
 
 # Which kernels each path must launch, and none of the others.
@@ -1327,7 +1302,10 @@ ONCHIP_SPLIT_KERNELS = ("agc_block", "costas_slab", "clock_bu", "viterbi")
 ONCHIP_FORMS_KERNELS = ("frontend_bk8", "frontend_bf16", "clock", "clock_bu_sinc")
 ONCHIP_FORMS_BLOCKS = 2
 RAGGED_K_FRONT = (1, 4, 8, 16, 64)     # K1's and K6's slabs on the ragged shapes
-RAGGED_K_CLOCK = (1, 4, 16)            # K2's chunks
+# K2's chunks; 64, `clock_bench`'s largest, reaches past the kernel's
+# shared-memory ring (a chunk spans ~K x 4.3 rows), so its symbols read from
+# device memory.
+RAGGED_K_CLOCK = (1, 4, 16, 64)
 
 
 def forms_path(cfg: DemodConfig, base: CF32, delays) -> dict:
@@ -2610,24 +2588,192 @@ def parallel_phase(smi: str, prep: dict, base: CF32, delays, vcdus) -> dict:
     return counted.total
 
 
-def device_kernels(fn) -> tuple[float, list]:
-    """Summed device time of the kernels of one run of `fn` (torch.profiler),
-    and its rows (name, ms, calls), largest first."""
-    from torch.profiler import ProfilerActivity, profile
+# --------------------------------------------------------------------------
+# the measuring tools
+# --------------------------------------------------------------------------
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+BER_SNRS = [-2.0, -1.0, 0.0, 1.0, 2.0, 4.0, 8.0]    # BER_SWEEP_r05's points
+BER_FRAMES, BER_HRIT_FRAMES = 64, 32
+BER_HRIT_SNRS = [-1.0, 0.0, 4.0]
+# HRIT's differential decoding doubles the Viterbi's bit errors, so its
+# margin lies above LRIT's: on these draws the JAX package's own tool
+# (`tools/ber_sweep.py --mode hrit --frames 32 --snrs -1,0,4`, on the CPU)
+# recovers 25 and 31 of 32 frames at -1 and 0 dB (BER_SWEEP_r02, on its
+# TPU: 11 of 12 at -1 dB).  Below 4 dB the port must recover exactly those.
+BER_HRIT_REFERENCE = {-1.0: 25, 0.0: 31}
+MARGIN_SNRS = [-1.0, 0.0, 1.0, 2.0, 3.0, 5.0]        # VITERBI_MARGIN_r04's grid
+MARGIN_SEGMENTS, MARGIN_OVERLAPS = [4, 8, 16], [64, 128, 256]
+INTERP_SIGMAS = [0.01, 0.05, 0.08]
+SCALING_CHANNELS = [128, 512, 1024, 2048]
+SCALING_MESH = [1, 2, 4]
+DECODE_B = 256
+# The kernels each tool must launch (on the card, never their plain versions).
+TOOL_KERNELS = {
+    "ber_sweep": ("viterbi",),
+    "viterbi_margin_sweep": ("viterbi",),
+    "interp_margin": ("frontend", "clock", "clock_sinc", "ring_append", "ring_extract",
+                      "viterbi"),
+    "scaling_sweep": ("frontend", "clock"),
+    "rx_profile": ("frontend", "clock", "ring_append", "ring_extract", "viterbi"),
+    "decode_profile": ("viterbi",),
+    "decode_bench": ("viterbi",),
+    "chain_bench": ("agc_block", "costas_block", "clock"),
+    "stage_profile": ("frontend", "clock_sinc"),
+    "clock_bench": ("clock", "clock_sinc", "clock_bu"),
+    "frontend_bench": ("frontend", "frontend_bk8", "frontend_bf16", "frontend_bk8_bf16",
+                       "clock", "agc_block", "costas_block"),
+    "host_budget_profile": ("frontend", "clock"),
+    "drive_demod": ("frontend", "clock"),
+}
+
+
+def _repo_json(name: str):
+    path = Path(__file__).resolve().parent / name
+    return json.loads(path.read_text()) if path.exists() else None
+
+
+def first_point_apart(got: list, want: list | None, keys: tuple):
+    """None when the rows agree on `keys` point for point, else the first
+    pair that differs (or why they cannot be compared)."""
+    if want is None:
+        return "reference file missing"
+    if len(got) != len(want):
+        return f"{len(got)} points against {len(want)}"
+    for g, w in zip(got, want):
+        if any(g.get(k) != w.get(k) for k in keys):
+            return dict(port={k: g.get(k) for k in keys}, reference={k: w.get(k) for k in keys})
+    return None
+
+
+def stage_split(res: dict) -> dict:
+    """Each component's ms with the sum of the components beside the whole."""
+    return dict(ms=res["ms"], whole=res["whole"], whole_ms=res["whole_ms"],
+                stages_of_whole=res.get("stages_of_whole"), stage_sum_ms=res["stage_sum_ms"])
+
+
+def tools_phase(smi: str) -> dict:
+    """The repo's measuring tools, ported (`xritdemod_tpu_torch/tools/`),
+    each run in this process through its own function at the sizes below,
+    one line a tool; the launches of each counted apart.  Gates: the BER
+    sweep decodes every frame bit-exact from -1 dB (LRIT in both of
+    BER_SWEEP_r05's variants, which must agree point for point; HRIT at
+    4 dB, and below it exactly the frames the JAX package's tool recovers);
+    the segmented Viterbi equals the exact one bit for bit on
+    VITERBI_MARGIN_r04's whole grid; the interpolators' full channels within
+    the JAX tool's rule and 128 of 128 at sigma 0.01; every profiler runs,
+    its numbers finite, its kernels launched."""
+    from xritdemod_tpu_torch.tools import (
+        ber_sweep, chain_bench, clock_bench, decode_bench, decode_profile, drive_demod,
+        frontend_bench, host_budget_profile, interp_margin, rx_profile, scaling_sweep,
+        stage_profile, viterbi_margin_sweep,
+    )
+
+    launches: dict = {}
+    seconds: dict = {}
+
+    def run(tool: str, fn):
+        counted = _Counted()
+        t0 = time.perf_counter()
+        with counted:
+            out = fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_time_total > 0 and e.device_type.name == "CUDA"),
-                  key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows
+        seconds[tool] = time.perf_counter() - t0
+        launches[tool] = {k: n for k, n in counted.total.items() if n}
+        missing = [k for k in TOOL_KERNELS[tool] if not counted.total.get(k)]
+        if missing:
+            fail(f"tools: {tool} never launched {missing}")
+        torch.cuda.empty_cache()
+        return out
+
+    def line(tool: str, **kw):
+        say("tools", tool=tool, card=smi, seconds=seconds[tool], launches=launches[tool], **kw)
+
+    # BER and frame success through StreamDecoder (BER_SWEEP_r05's protocol).
+    r05 = _repo_json("BER_SWEEP_r05.json")
+    ber = run("ber_sweep", lambda: dict(
+        lrit_a=ber_sweep.run_sweep("lrit", BER_FRAMES, BER_SNRS, device=DEV),
+        lrit_b=ber_sweep.run_sweep("lrit", BER_FRAMES, BER_SNRS, frames_per_block=64,
+                                   segments=8, device=DEV),
+        hrit=ber_sweep.run_sweep("hrit", BER_HRIT_FRAMES, BER_HRIT_SNRS, device=DEV)))
+    keys = ("snr_db", "frames_ok", "frame_success", "post_fec_ber", "avg_vit_corrections")
+    line("ber_sweep", variants=dict(a=dict(fpb=4, segments=-1), b=dict(fpb=64, segments=8)),
+         **ber, variants_identical=ber["lrit_a"] == ber["lrit_b"],
+         equal_to_r05=[all(g[k] == w[k] for k in keys) for g, w in zip(
+             ber["lrit_a"], r05["points"] if r05 else [])],
+         first_point_apart_from_r05=first_point_apart(
+             ber["lrit_a"], r05 and r05["points"], keys))
+    bad = [(v, r["snr_db"]) for v in ber for r in ber[v]
+           if (v, r["snr_db"]) not in {("hrit", s) for s in BER_HRIT_REFERENCE}
+           and r["snr_db"] >= -1.0 and (r["frame_success"] != 1.0 or r["post_fec_ber"] != 0.0)]
+    bad += [("hrit", r["snr_db"], r["frames_ok"]) for r in ber["hrit"]
+            if r["snr_db"] in BER_HRIT_REFERENCE
+            and r["frames_ok"] != BER_HRIT_REFERENCE[r["snr_db"]]]
+    if bad or ber["lrit_a"] != ber["lrit_b"]:
+        fail(f"tools: ber_sweep below its margin at {bad}, or the variants differ")
+
+    r04 = _repo_json("VITERBI_MARGIN_r04.json")
+    margin = run("viterbi_margin_sweep", lambda: viterbi_margin_sweep.run(
+        BER_FRAMES, MARGIN_SNRS, MARGIN_SEGMENTS, MARGIN_OVERLAPS, device=DEV, log=None))
+    line("viterbi_margin_sweep", frames_per_point=BER_FRAMES, rows=margin,
+         first_point_apart_from_r04=first_point_apart(
+             margin, r04 and r04["results"], ("snr_db", "segments", "overlap", "bit_mismatch",
+                                              "frame_success_exact", "frame_success_seg",
+                                              "frames_diverged")))
+    bad = [r for r in margin if r["bit_mismatch"] != 0.0 or r["frames_diverged"]]
+    if bad:
+        fail(f"tools: the segmented Viterbi differs from the exact one: {bad}")
+
+    rm = _repo_json("INTERP_MARGIN_r05.json")
+    im = run("interp_margin", lambda: interp_margin.sweep(INTERP_SIGMAS, 128, 4, device=DEV))
+    ref = {(p["interp"], p["sigma"]): p for p in (rm["points"] if rm else [])}
+    line("interp_margin", capture_frames=im["capture_frames"], points=im["points"],
+         r05_channels_full={f"{p['interp']} {p['sigma']}": ref.get(
+             (p["interp"], p["sigma"]), {}).get("channels_full") for p in im["points"]},
+         r05_frames_recovered={f"{p['interp']} {p['sigma']}": ref.get(
+             (p["interp"], p["sigma"]), {}).get("frames_recovered") for p in im["points"]})
+    full = {(p["interp"], p["sigma"]): p["channels_full"] for p in im["points"]}
+    if interp_margin.margin_failures(im["points"], 128) \
+            or full["mmse", 0.01] != 128 or full["sinc", 0.01] != 128:
+        fail(f"tools: interp_margin: {full}")
+
+    sc = run("scaling_sweep", lambda: dict(
+        channels=scaling_sweep.sweep_channels(SCALING_CHANNELS, device=DEV),
+        mesh=scaling_sweep.sweep_mesh(SCALING_MESH, device=DEV)))
+    line("scaling_sweep", **sc, note=scaling_sweep.MESH_NOTE)
+    if not all(r["soft_finite"] for r in sc["channels"] + sc["mesh"]):
+        fail(f"tools: scaling_sweep gave soft symbols that are not finite: {sc}")
+
+    profiles = [
+        ("rx_profile", lambda: rx_profile.profile(1024, 1 << 17, 6, device=DEV)),
+        ("decode_profile", lambda: decode_profile.profile(DECODE_B, 6, DEV)),
+        ("decode_bench", lambda: decode_bench.bench(DECODE_B, 5, DEV)),
+        ("chain_bench", lambda: chain_bench.bench(512, 1 << 18, 5, 2, DEV)),
+        ("stage_profile", lambda: stage_profile.profile(512, 1 << 17, 8, "sinc", DEV)),
+        ("clock_bench", lambda: clock_bench.bench(device=DEV)),
+        ("frontend_bench", lambda: dict(
+            both=frontend_bench.bench("both", device=DEV),
+            split=frontend_bench.bench("split", device=DEV))),
+        ("host_budget_profile", lambda: host_budget_profile.profile(device=DEV)),
+    ]
+    for tool, fn in profiles:
+        res = run(tool, fn)
+        parts = res.values() if tool == "frontend_bench" else [res]
+        if not all(p["all_finite"] for p in parts):
+            fail(f"tools: {tool} gave numbers that are not finite: {res}")
+        per_call = res.pop("launches", None)
+        extra = stage_split(res) if "stage_sum_ms" in res else {}
+        line(tool, **{k: v for k, v in res.items() if k not in extra}, **extra,
+             launches_per_call=per_call)
+
+    dd = run("drive_demod", lambda: drive_demod.drive(512, 3, device=DEV))
+    line("drive_demod", **dd)
+    if not dd["ok"]:
+        fail(f"tools: drive_demod failed its checks: {dd}")
+    return launches
 
 
-def device_busy_ms(fn) -> float:
-    """Summed device time of the kernels of one run of `fn` (torch.profiler)."""
-    return device_kernels(fn)[0]
+device_kernels = timing.device_kernels
+device_busy_ms = timing.device_busy_ms
 
 
 def profile_steps(step, base: CF32, delays, step_ms: float,
@@ -2789,6 +2935,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     parallel_counts = parallel_phase(smi, parallel_captures, base, delays, vcdus)
     torch.cuda.empty_cache()
+    tools_counts = tools_phase(smi)
 
     # The roll probe is a tool, not a stage of either receive path: its path
     # is its own entry point.
@@ -2825,10 +2972,13 @@ def main() -> None:
             r["launches_apps"] = apps_counts[name]
         if name in PARALLEL_KERNELS:
             r["launches_parallel"] = parallel_counts[name]
+    for r in rows + onchip_rows:
+        r["launches_tools"] = {t: c[r["name"]] for t, c in tools_counts.items()
+                               if c.get(r["name"])}
     say("total", seconds=time.perf_counter() - t_start, seconds_up_to_each_line=PHASE_S)
     print(smi, flush=True)
-    extra = ("launches_split_path", "launches_apps", "launches_parallel", "lanes",
-             "split_shapes", "form", "path", "exact_ms", "split_shape")
+    extra = ("launches_split_path", "launches_apps", "launches_parallel", "launches_tools",
+             "lanes", "split_shapes", "form", "path", "exact_ms", "split_shape")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows + onchip_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,3 +13,23 @@ same function beside it, which is what runs for a CPU tensor.
 """
 
 __version__ = "0.1.0"
+
+
+def version_info() -> str:
+    """Library and version introspection (the reference's SatHelper `Info`):
+    the package version, the commit where the package lies in a git checkout,
+    and the torch and CUDA versions."""
+    import subprocess
+
+    import torch
+
+    try:
+        sha = subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"],
+            capture_output=True, text=True, timeout=5,
+            cwd=__path__[0],
+        ).stdout.strip() or "unknown"
+    except (OSError, subprocess.SubprocessError):
+        sha = "unknown"
+    return (f"xritdemod_tpu_torch {__version__} ({sha}) on torch {torch.__version__}"
+            f" (CUDA {torch.version.cuda})")

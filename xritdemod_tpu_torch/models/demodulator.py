@@ -35,7 +35,7 @@ from xritdemod_tpu_torch.ops.clock_cuda import (
 )
 from xritdemod_tpu_torch.ops.frontend_cuda import demod_frontend
 from xritdemod_tpu_torch.ops.stream_cuda import agc_block_kernel, costas_block_kernel
-from xritdemod_tpu_torch.utils.cplx import CF32, from_complex
+from xritdemod_tpu_torch.utils.cplx import CF32, from_complex, map_tree
 
 __all__ = ["DemodConfig", "DemodState", "Demodulator", "quantize_symbols", "slot_budget"]
 
@@ -402,11 +402,7 @@ def _transpose(x: CF32) -> CF32:
     return CF32(x.re.t().contiguous(), x.im.t().contiguous())
 
 
-def _map_state(fn, state):
-    """`fn` applied to every tensor of a (nested) state."""
-    if isinstance(state, torch.Tensor):
-        return fn(state)
-    return type(state)(*(_map_state(fn, s) for s in state))
+_map_state = map_tree   # `fn` applied to every tensor of a (nested) state
 
 
 def quantize_symbols(soft: torch.Tensor) -> torch.Tensor:

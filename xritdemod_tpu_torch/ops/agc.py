@@ -32,7 +32,8 @@ import torch
 from xritdemod_tpu_torch.ops.scan import scan
 from xritdemod_tpu_torch.utils.cplx import CF32
 
-__all__ = ["AgcParams", "agc_init", "agc_block", "agc_gains", "agc_slab_gains"]
+__all__ = ["AgcParams", "agc_init", "agc_block", "agc_block_exact", "agc_gains",
+           "agc_slab_gains"]
 
 
 class AgcParams(NamedTuple):
@@ -67,6 +68,10 @@ def agc_block(x: CF32, gain: torch.Tensor, params: AgcParams):
     gains, new_gain = agc_gains(x.abs().movedim(-1, 0), gain, params)
     g = gains.movedim(0, -1)
     return CF32(x.re * g, x.im * g), new_gain
+
+
+# The JAX package's name for its sequential form; `agc_block` is that form here.
+agc_block_exact = agc_block
 
 
 def agc_slab_gains(mag_t: torch.Tensor, gain: torch.Tensor, params: AgcParams, chunk: int):

@@ -50,12 +50,13 @@ import torch
 
 from xritdemod_tpu_torch.ops.interp_taps import NSTEPS, mmse_taps_table
 from xritdemod_tpu_torch.ops.scan import scan
-from xritdemod_tpu_torch.utils.cplx import CF32
+from xritdemod_tpu_torch.utils.cplx import CF32, map_tree
 
 __all__ = [
     "ClockRecoveryParams",
     "ClockRecoveryState",
     "clock_recovery_init",
+    "clock_recovery_block",
     "clock_recovery_block_batch",
     "clock_recovery_block_update_batch",
     "segment_rows",
@@ -276,6 +277,25 @@ def clock_recovery_block_batch(
         tail=CF32(xr[:, -NTAIL:].contiguous(), xi[:, -NTAIL:].contiguous()),
     )
     return CF32(sr.t().contiguous(), si.t().contiguous()), vd.t().contiguous(), new_state
+
+
+@torch.no_grad()
+def clock_recovery_block(
+    x: CF32,
+    state: ClockRecoveryState,
+    params: ClockRecoveryParams,
+    num_slots: int,
+    interp: str = "sinc",
+):
+    """The unbatched form: one `(T,)` CF32 block with an unbatched state
+    (scalar mu, omega and ii; `(3,)` histories; `(NTAIL,)` tail) ->
+    `(symbols (num_slots,), valid (num_slots,), new state)`.  The default
+    interpolator is "sinc", as in the JAX package's `clock_recovery_block`;
+    `clock_recovery_block_batch` over one channel."""
+    batched = map_tree(lambda a: a[None], state)
+    syms, valid, new = clock_recovery_block_batch(
+        CF32(x.re[None], x.im[None]), batched, params, num_slots, interp)
+    return syms[0], valid[0], map_tree(lambda a: a[0], new)
 
 
 @torch.no_grad()

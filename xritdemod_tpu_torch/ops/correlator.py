@@ -16,7 +16,8 @@ import torch.nn.functional as F
 
 from xritdemod_tpu_torch.utils.bits import bits_of_u64
 
-__all__ = ["make_templates", "correlate", "best_correlation", "UW_BITS"]
+__all__ = ["make_templates", "correlate", "best_correlation", "correlate_at", "phase_fix",
+           "UW_BITS"]
 
 UW_BITS = 64
 
@@ -75,3 +76,30 @@ def first_argmax(x: torch.Tensor) -> torch.Tensor:
     mx = x.max(dim=-1, keepdim=True).values
     iota = torch.arange(n, device=x.device)
     return torch.where(x == mx, iota, n).min(dim=-1).values
+
+
+def correlate_at(soft: torch.Tensor, templates: torch.Tensor, positions: torch.Tensor):
+    """Match counts at given start positions only (per-frame sync re-check).
+
+    Args:
+      soft: `(L,)` soft symbols.
+      templates: `(W, 64)`.
+      positions: `(B,)` int starts, each at most `L - 64`.
+
+    Returns:
+      `(corr, word)` each `(B,)`: the best count over words at each position
+      and the first word that reaches it.
+    """
+    idx = positions.to(torch.int64)[:, None] + torch.arange(UW_BITS, device=soft.device)
+    counts = (UW_BITS + _hard_signs(soft[idx]) @ templates.t()) * 0.5      # (B, W)
+    return counts.max(dim=-1).values, first_argmax(counts).to(torch.int32)
+
+
+def phase_fix(soft: torch.Tensor, word) -> torch.Tensor:
+    """Resolve the BPSK 180-degree ambiguity: negate when `word` is odd
+    (word 0 is the 0-degree pattern, word 1 the 180-degree one, in the
+    reference's registration order).  `word` broadcasts against `soft`'s
+    leading dimensions."""
+    word = torch.as_tensor(word, device=soft.device)
+    one = torch.ones((), dtype=soft.dtype, device=soft.device)
+    return soft * torch.where(word % 2 == 1, -one, one)

@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["pn_sequence", "derandomize"]
+__all__ = ["pn_sequence", "derandomize", "randomize"]
 
 _TAPS = (7, 4, 2, 0)
 
@@ -43,3 +43,6 @@ def derandomize(data: torch.Tensor) -> torch.Tensor:
     """XOR `(..., N)` uint8 frames with the PN sequence (restart per frame)."""
     return data ^ pn_sequence(data.shape[-1], data.device)
 
+
+
+randomize = derandomize  # XOR involution

@@ -7,9 +7,10 @@ bytes one XOR of the stream with itself shifted right by one bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["nrzm_decode_bytes"]
+__all__ = ["nrzm_decode_bytes", "nrzm_encode_bytes"]
 
 
 def nrzm_decode_bytes(data: torch.Tensor, prev_bit: int = 0) -> torch.Tensor:
@@ -23,3 +24,11 @@ def nrzm_decode_bytes(data: torch.Tensor, prev_bit: int = 0) -> torch.Tensor:
     prev_lsb[..., 0] = prev_bit
     shifted = (data >> 1) | (prev_lsb << 7)
     return data ^ shifted
+
+
+def nrzm_encode_bytes(data, prev_bit: int = 0) -> np.ndarray:
+    """Host-side inverse for fixtures: enc[i] = enc[i-1] XOR bit[i] over
+    `(..., N)` uint8 packed bits (numpy in, numpy out)."""
+    bits = np.unpackbits(np.asarray(data, np.uint8), axis=-1)
+    enc = np.bitwise_xor.accumulate(bits, axis=-1) ^ np.uint8(prev_bit & 1)
+    return np.packbits(enc, axis=-1)

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
@@ -29,6 +28,7 @@ import numpy as np
 
 from xritdemod_tpu_torch import tx
 from xritdemod_tpu_torch.models.demodulator import DemodConfig
+from xritdemod_tpu_torch.tools.timing import card
 from xritdemod_tpu_torch.utils.cplx import quantize_iq_s8
 
 SCID, VCID = 13, 5
@@ -83,16 +83,6 @@ def account(frames, vcdus, vcid: int = VCID) -> dict:
         duplicates=len(keys) - len(set(keys)),
         counters_ascending=on_vcid == sorted(on_vcid),
     )
-
-
-def card(device: str) -> str:
-    """`nvidia-smi`'s name and power limit of the card (the CPU: "cpu")."""
-    if not device.startswith("cuda"):
-        return "cpu"
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    lines = out.stdout.strip().splitlines()
-    return lines[0] if lines else "unknown"
 
 
 def run(cfg: DemodConfig, capture: np.ndarray, vcdus, folds: int = 128,

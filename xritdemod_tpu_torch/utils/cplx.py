@@ -17,6 +17,9 @@ __all__ = [
     "CF32",
     "from_complex",
     "to_complex",
+    "zeros",
+    "full_like_shape",
+    "map_tree",
     "dequantize_iq_s8",
     "quantize_iq_s8",
 ]
@@ -39,8 +42,47 @@ class CF32(NamedTuple):
     def __getitem__(self, idx) -> "CF32":  # type: ignore[override]
         return CF32(self.re[idx], self.im[idx])
 
+    # -- arithmetic ---------------------------------------------------------
+    def __add__(self, o: "CF32") -> "CF32":
+        return CF32(self.re + o.re, self.im + o.im)
+
+    def __sub__(self, o: "CF32") -> "CF32":
+        return CF32(self.re - o.re, self.im - o.im)
+
+    def __mul__(self, o):
+        if isinstance(o, CF32):
+            return CF32(
+                self.re * o.re - self.im * o.im,
+                self.re * o.im + self.im * o.re,
+            )
+        return CF32(self.re * o, self.im * o)
+
+    def conj(self) -> "CF32":
+        return CF32(self.re, -self.im)
+
     def abs(self) -> torch.Tensor:
         return torch.sqrt(self.re * self.re + self.im * self.im)
+
+    def abs2(self) -> torch.Tensor:
+        return self.re * self.re + self.im * self.im
+
+
+def zeros(shape, dtype=torch.float32, device="cpu") -> CF32:
+    return CF32(torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+
+def full_like_shape(x: CF32, shape) -> CF32:
+    """Zeros of `shape` with `x`'s dtype and device."""
+    return zeros(shape, x.re.dtype, x.re.device)
+
+
+def map_tree(fn, tree):
+    """`fn` applied to every tensor of a nested NamedTuple of tensors (a
+    state, a CF32)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(*(map_tree(fn, t) for t in tree))
 
 
 def from_complex(x, device="cpu") -> CF32:
