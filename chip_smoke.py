@@ -13,7 +13,8 @@ chained blocks, each version carrying its own state) and at small ragged
 shapes (also: the clock where channels stand further apart than its
 shared-memory ring, and the Costas step's sine and cosine against the CUDA
 library's; the plain recurrences run as replayed CUDA graphs, `ops/scan.py`,
-themselves held bit-equal to eager loops first), then drives the paths at
+themselves held bit-equal to eager loops first; the banded-matmul FIR at the
+split path's shape against cuDNN and a float64 sum), then drives the paths at
 the shipped LRIT operating point,
 C = 2048 channels x 131072 samples per block, on synthesised captures:
 
@@ -33,7 +34,11 @@ C = 2048 channels x 131072 samples per block, on synthesised captures:
     forms (K1-bk8 in float32, K1-bf16, K2's sinc block update); every new
     instance against its plain version at its path's shape and on the
     ragged shapes, at K = 1 K6 and K2 against their exact instances; the
-    times beside the exact forms';
+    times beside the exact forms'; K1 with the slab on one loop
+    (`block_stages="agc"` or `"costas"`, float32 and bf16) called as its op,
+    and the four float32 forms of K = 8 timed in turns on one input;
+  - `clock_max_block=2^15`: one `block_batch` exact and one with the block
+    update, four segments, against the plain clock over the same segments;
 
 and checks every recovered VCDU bit for bit against what was transmitted.
 Then: the reference's frozen answers (`tests/fixtures/`: the SHA-pinned
@@ -43,7 +48,9 @@ LRIT stream through the serial `Demodulator.process` -> `StreamDecoder`,
 per interpolator (its first block's kernels held against their plain
 versions at one channel); `CaduDecoder.decode_multi` at 2048 x 8 frames
 against sequential `decode_frames` (its one Viterbi launch against the plain
-decoder); the apps, the entry points a user starts: the two-process
+decoder); the RS decoder's branches in `decode_frames` at 2048 frames (the
+sparse and the full branch against XRIT_RS_SPARSE=0, every field equal, the
+host reads of each call counted); the apps, the entry points a user starts: the two-process
 interop (`tools/interop_run.py`: `cli decode` and `cli demod` over loopback
 on 30 s of LRIT at 1.25 Msps, every frame checked on the vchannel port and
 the statistics stream parsed), `ReceiverApp` at the config loader's default
@@ -97,6 +104,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -118,7 +126,8 @@ from xritdemod_tpu_torch.ops import costas as costas_op
 from xritdemod_tpu_torch.ops import scan as scan_op
 from xritdemod_tpu_torch.ops import viterbi as viterbi_op
 from xritdemod_tpu_torch.ops import (
-    clock_cuda, filters, fir, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda,
+    clock_cuda, filters, fir, frontend_cuda, reed_solomon, ring_cuda, stream_cuda,
+    viterbi_cuda,
 )
 from xritdemod_tpu_torch.ops.clock_recovery import NTAIL
 from xritdemod_tpu_torch.parallel import distributed as pdist
@@ -500,11 +509,20 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
     ms = time_ms(lambda: ring_cuda.ring_append(scratch, fill, ks.re, n_new), 10)
     moved = int(n_new[~ko].sum())
     bms, by = bound(4 * (2 * moved + 4 * C), 0.0)
+    # No one PyTorch call appends n_new[c] of a channel's S lanes at its fill
+    # and refuses a channel that would overflow: the nearest, one `scatter_`
+    # of all S lanes from the fill on (the index made beforehand), writes
+    # the lanes past n_new too and checks nothing.
+    idx = (fill[:, None].to(torch.int64) + torch.arange(S, device=DEV)).clamp(max=L - 1)
+    near = time_ms(lambda: scratch.scatter_(1, idx, ks.re), 10)
     rows.append(dict(
         name="ring_append", route="cuda", source="xritdemod_tpu_torch/csrc/ring.cu",
         replaces="xritdemod_tpu/ops/ring_pallas.py:114", max_abs_err=0.0, tolerance="exact",
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        nearest_library_call=dict(call="Tensor.scatter_ of all S lanes at the fill (no "
+                                  "n_new mask, no overflow check)", ms=near),
     ))
+    del idx
 
     # K4b ring extract: random positions; channels short of a frame stay.
     # Every 61st channel holds half a frame, so some are short at any C.
@@ -526,11 +544,19 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
     okc = kout[3]
     kept = int(kout[1][okc].sum())
     bms, by = bound(4 * (kept + int(kf[okc].sum()) + 2 * C * E + 4 * C), 0.0)
+    # No one PyTorch call both takes a frame out at pos and shifts the rest
+    # of the ring to its front: the nearest, one `torch.gather` of the E
+    # symbols from pos (the index made beforehand), leaves the ring as it is.
+    idx = pos[:, None].to(torch.int64) + torch.arange(E, device=DEV)
+    near = time_ms(lambda: torch.gather(kr, 1, idx), 10)
     rows.append(dict(
         name="ring_extract", route="cuda", source="xritdemod_tpu_torch/csrc/ring.cu",
         replaces="xritdemod_tpu/ops/ring_pallas.py:145", max_abs_err=0.0, tolerance="exact",
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        nearest_library_call=dict(call="torch.gather of the E symbols at pos (the ring "
+                                  "not shifted)", ms=near),
     ))
+    del idx
     del kr, pr, kout, pout, ring0, scratch
 
     # K3 Viterbi: C noisy coded frames with history, windowed as the decoder
@@ -799,6 +825,58 @@ def check_fir() -> dict:
         if not max(errs) <= tol:
             fail(f"fir {name}: fir_block differs from the ascending-tap sum by {max(errs)}")
     return out
+
+
+FIR_MM_SHAPE = (512, 1 << 17)     # the split path's RRC in `frontend_bench`
+
+
+def check_fir_matmul() -> dict:
+    """`fir.fir_block(method="matmul")` (the banded tap matrix, one cuBLAS
+    float32 product a plane) against the convolution (cuDNN, the split
+    path's RRC) and the ascending-tap sum in float64, at C = 512 x 131072
+    with the RRC taps, the global TF32 flags untouched.  Fails where an
+    output of the matmul form lies further from the float64 sum than
+    gamma_N = N x 2^-24 times sum_k |t_k x_(n+k)| (the tolerance of
+    `tests/test_torch_demod.py::test_banded_matmul_fir`: float32 products
+    and sums in any order).  Both times, both errors, the bound."""
+    C, T = FIR_MM_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    rnd = lambda *shape: 0.5 * torch.randn(shape, generator=g, device=DEV)
+    taps = torch.from_numpy(filters.rrc_taps(1.0, 1_250_000, K.LRIT_SYMBOL_RATE,
+                                             K.LRIT_RRC_ALPHA, K.RRC_TAPS)).to(DEV)
+    N = int(taps.shape[0])
+    x, hist = CF32(rnd(C, T), rnd(C, T)), CF32(rnd(C, N - 1), rnd(C, N - 1))
+    ym, hm = fir.fir_block(x, taps, hist, method="matmul")
+    yc, _ = fir.fir_block(x, taps, hist)
+    gamma = N * 2.0 ** -24
+    errs, ratio = dict(matmul=0.0, conv=0.0), dict(matmul=0.0, conv=0.0)
+    for m, c, xp, hin in ((ym.re, yc.re, x.re, hist.re), (ym.im, yc.im, x.im, hist.im)):
+        ext = torch.cat([hin, xp], dim=-1).t().contiguous().double()
+        exact = frontend_cuda._fir_cl(ext, taps.double(), T).t()
+        scale = frontend_cuda._fir_cl(ext.abs(), taps.double().abs(), T).t()
+        del ext
+        for name, y in (("matmul", m), ("conv", c)):
+            d = (y.double() - exact).abs()
+            errs[name] = max(errs[name], float(d.max()))
+            ratio[name] = max(ratio[name], float((d / (gamma * scale)).max()))
+        del exact, scale
+    if not torch.equal(hm.re, torch.cat([hist.re, x.re], -1)[:, T:]):
+        fail("fir matmul: wrong history")
+    mm_ms = time_ms(lambda: fir.fir_block(x, taps, hist, method="matmul"), 5)
+    conv_ms = time_ms(lambda: fir.fir_block(x, taps, hist), 5)
+    # Two planes, each read once and written once, N products and sums an
+    # output; the banded product also multiplies the band's zeros.
+    bms, by = bound(2 * 2 * C * T * 4, 2 * C * T * N * 2)
+    banded_flop = 2 * C * (T // 256) * (256 + N - 1) * 256 * 2
+    if not ratio["matmul"] <= 1.0:
+        fail(f"fir matmul: {ratio['matmul']} x its tolerance from the float64 sum")
+    return dict(shape=[C, T], taps=N, matmul_ms=mm_ms, conv_ms=conv_ms, bound_ms=bms,
+                bound_by=by, banded_product_gflop=banded_flop / 1e9,
+                banded_product_f32_ms=banded_flop / PEAK_F32 * 1e3, matmul_max_abs_err=errs["matmul"], conv_max_abs_err=errs["conv"],
+                matmul_err_over_tolerance=ratio["matmul"],
+                conv_err_over_tolerance=ratio["conv"],
+                tolerance="|y - float64 sum| <= N 2^-24 sum_k |t_k x_(n+k)|",
+                matmul_precision=torch.get_float32_matmul_precision())
 
 
 def _leaves(o) -> list:
@@ -1302,6 +1380,13 @@ ONCHIP_SPLIT_KERNELS = ("agc_block", "costas_slab", "clock_bu", "viterbi")
 ONCHIP_FORMS_KERNELS = ("frontend_bk8", "frontend_bf16", "clock", "clock_bu_sinc")
 ONCHIP_FORMS_BLOCKS = 2
 RAGGED_K_FRONT = (1, 4, 8, 16, 64)     # K1's and K6's slabs on the ragged shapes
+RAGGED_K_STAGES = (1, 8, 64)           # K1's slab on one loop, float32 (bf16: ONCHIP_K)
+# K1's forms timed in turns on one input (the float32 forms of `block_k` 8:
+# the exact form, the slab on both loops, on the AGC alone, on the Costas
+# loop alone), and the rounds; the bf16 one-loop forms are launched beside.
+K1_STAGE_FORMS = ("frontend", "frontend_bk8", "frontend_bk8_agc", "frontend_bk8_costas")
+K1_STAGE_KERNELS = K1_STAGE_FORMS + ("frontend_bk8_agc_bf16", "frontend_bk8_costas_bf16")
+K1_STAGE_ROUNDS = 5
 # K2's chunks; 64, `clock_bench`'s largest, reaches past the kernel's
 # shared-memory ring (a chunk spans ~K x 4.3 rows), so its symbols read from
 # device memory.
@@ -1361,22 +1446,32 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
     g = torch.Generator(device=DEV).manual_seed(SEED + 5)
     rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
     fe = (demod._agc, demod._rrc_taps, demod._costas)
-    out = {"frontend_forms": 0.0, "costas_slab": 0.0, "clock_bu": 0.0, "clock_bu_sinc": 0.0,
-           "k1_equal_to_exact": True}
-    forms = [(bk, "highest") for bk in RAGGED_K_FRONT] + [(ONCHIP_K, "bf16"), (0, "bf16")]
+    out = {"frontend_forms": 0.0, "frontend_stage_forms": 0.0, "costas_slab": 0.0,
+           "clock_bu": 0.0, "clock_bu_sinc": 0.0, "k1_equal_to_exact": True}
+    forms = [(bk, "both", "highest") for bk in RAGGED_K_FRONT] + [
+        (ONCHIP_K, "both", "bf16"), (0, "both", "bf16")] + [
+        (bk, stages, prec) for stages in ("agc", "costas")
+        for bk, prec in [(k, "highest") for k in RAGGED_K_STAGES] + [(ONCHIP_K, "bf16")]]
+    stage_s = 0.0
     for C, T in RAGGED_SHAPES:
         st = demod.init_state_batch(C)
-        for bk, prec in forms:
+        for bk, stages, prec in forms:
             Tk = ragged_len(T, max(bk, 1))
             if Tk < max(bk, 1):
                 continue
+            key = "frontend_forms" if stages == "both" else "frontend_stage_forms"
+            t0 = time.perf_counter()
             kfe = pfe = (st.agc_gain + rnd(C).abs(), CF32(rnd(C, 62), rnd(C, 62)), st.costas)
             for _ in range(2):
                 x = ragged_signal(Tk, C, rnd)
-                k = frontend_cuda.demod_frontend(x, *kfe, *fe, block_k=bk, precision=prec)
-                p = frontend_cuda.demod_frontend_plain(x, *pfe, *fe, block_k=bk, precision=prec)
-                out["frontend_forms"] = max(out["frontend_forms"], *frontend_errs(k, p))
+                k = frontend_cuda.demod_frontend(x, *kfe, *fe, block_k=bk, precision=prec,
+                                                 block_stages=stages)
+                p = frontend_cuda.demod_frontend_plain(x, *pfe, *fe, block_k=bk, precision=prec,
+                                                       block_stages=stages)
+                out[key] = max(out[key], *frontend_errs(k, p))
                 kfe, pfe = k[1:], p[1:]
+            if stages != "both":
+                stage_s += time.perf_counter() - t0
         for K in RAGGED_K_FRONT:
             Tk = ragged_len(T, K)
             if Tk < K:
@@ -1428,10 +1523,54 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
         fail("onchip: the ragged bf16 ring differs from its plain version")
     out["ring_bf16"] = 0.0
     worst = max(v for k, v in out.items() if k != "k1_equal_to_exact")
+    out["frontend_stage_forms_seconds"] = stage_s
     if not worst <= 0.0 or not out["k1_equal_to_exact"]:
         fail(f"onchip ragged shapes: a new instance disagrees with its plain version or, at "
              f"K = 1, with its exact instance: {out}")
     return out
+
+
+def k1_stage_path(demod: Demodulator, x: CF32) -> tuple[dict, dict]:
+    """K1's forms as a user calls them (`frontend_cuda.demod_frontend(...,
+    block_k=8, block_stages=...)`, as the JAX package's own probe of the
+    one-loop forms does), on one full-size block from the initial state:
+    the four float32 forms of K1_STAGE_FORMS timed in turns, one launch
+    each, K1_STAGE_ROUNDS rounds (the order rotated each round), then the
+    bf16 one-loop forms once.  The launches are counted apart from every
+    other run: this is the path of the one-loop forms.  Returns (the ms of
+    every round and the median of each form, the launches)."""
+    C, T = x.re.shape
+    xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+    st = demod.init_state_batch(C)
+    args = (xT, st.agc_gain, st.rrc_hist, st.costas, demod._agc, demod._rrc_taps,
+            demod._costas)
+    forms = {name: dict(block_k=bk, block_stages=stages, precision=prec)
+             for name, (bk, stages, prec) in FRONTEND_FORMS.items()}
+    forms["frontend"] = dict(block_k=0, block_stages="both", precision="highest")
+    torch.cuda.synchronize()
+    reset_counts()
+    ms = {name: [] for name in K1_STAGE_FORMS}
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for r in range(K1_STAGE_ROUNDS):
+        order = K1_STAGE_FORMS[r % 4:] + K1_STAGE_FORMS[:r % 4]
+        for name in order:
+            a.record()
+            frontend_cuda.demod_frontend(*args, **forms[name])
+            b.record()
+            torch.cuda.synchronize()
+            ms[name].append(a.elapsed_time(b))
+    for name in K1_STAGE_KERNELS[len(K1_STAGE_FORMS):]:
+        frontend_cuda.demod_frontend(*args, **forms[name])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("K1 one-loop forms' path", counts, K1_STAGE_KERNELS)
+    # The first round also loads each instance: the medians leave it out.
+    med = {name: float(np.median(v[1:])) for name, v in ms.items()}
+    return dict(shape=[C, T], rounds=K1_STAGE_ROUNDS, ms_each_round=ms, median_ms=med,
+                both_minus_exact_ms=med["frontend_bk8"] - med["frontend"],
+                agc_slab_minus_exact_ms=med["frontend_bk8_agc"] - med["frontend"],
+                costas_slab_minus_exact_ms=med["frontend_bk8_costas"] - med["frontend"],
+                launches=counts), counts
 
 
 def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> list[dict]:
@@ -1455,32 +1594,34 @@ def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> 
     xT = [CF32(x.re.t().contiguous(), x.im.t().contiguous()) for x in (x0, x1)]
     fe_bound = bound(4 * (4 * T * C + 4 * C * (N - 1) + 6 * C), T * C * (4 * N + 40))
     y_bk8_bf16 = None
-    for name, (bk, prec) in FRONTEND_FORMS.items():
+    for name, (bk, stages, prec) in FRONTEND_FORMS.items():
         kst = pst = (st.agc_gain, st.rrc_hist, st.costas)
         errs, plain_ms = [], None
+        form = dict(block_k=bk, precision=prec, block_stages=stages)
         for b, x in enumerate(xT):
-            k = frontend_cuda.demod_frontend(x, *kst, *fe, block_k=bk, precision=prec)
+            k = frontend_cuda.demod_frontend(x, *kst, *fe, **form)
             torch.cuda.synchronize()
-            p, pms = once_ms(lambda: frontend_cuda.demod_frontend_plain(
-                x, *pst, *fe, block_k=bk, precision=prec))
+            p, pms = once_ms(lambda: frontend_cuda.demod_frontend_plain(x, *pst, *fe, **form))
             errs += frontend_errs(k, p)
             if b == 1:
                 args = (x, *kst, *fe)
-                ms = time_ms(lambda: frontend_cuda.demod_frontend(
-                    *args, block_k=bk, precision=prec), 3)
+                ms = time_ms(lambda: frontend_cuda.demod_frontend(*args, **form), 3)
                 if PROFILE and prec == "highest":
-                    stage_clocks("frontend", frontend_cuda.roles(bk), lambda: frontend_cuda.
-                                 demod_frontend(*args, block_k=bk, precision=prec), name)
+                    stage_clocks("frontend", frontend_cuda.roles(bk, stages), lambda: frontend_cuda.
+                                 demod_frontend(*args, **form), name)
                 plain_ms = pms
             if name == "frontend_bk8_bf16":
                 y_bk8_bf16 = (y_bk8_bf16 or []) + [p[0]]
             kst, pst = k[1:], p[1:]
         if not max(errs) <= 0.0:
             fail(f"onchip: {name} disagrees with its plain version: {errs}")
+        lines = {"both": "87-145, 166-237", "agc": "87-145, 166-192, 238-258",
+                 "costas": "146-237"}[stages]
         rows.append(dict(
             name=name, route="cuda", source="xritdemod_tpu_torch/csrc/frontend.cu",
             replaces="xritdemod_tpu/ops/frontend_pallas.py:335",
-            form=f"block_k={bk}, precision='{prec}' (frontend_pallas.py:87-150, 166-225)",
+            form=f"block_k={bk}, block_stages='{stages}', precision='{prec}' "
+                 f"(frontend_pallas.py:{lines})",
             max_abs_err=max(errs), tolerance="exact, two chained blocks", ms=ms,
             exact_ms=exact["frontend"]["ms"], plain_ms=plain_ms, bound_ms=fe_bound[0],
             bound_by=fe_bound[1], library_ms=None))
@@ -1700,6 +1841,7 @@ def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdu
     x0, x1 = (make_block(base, delays, b, gen) for b in (0, 1))
     exact = {r["name"]: r for r in exact_rows}
     rows = check_onchip_kernels(main["rx"], x0, x1, exact)
+    k1_forms, stage_counts = k1_stage_path(main["rx"]._demod, x1)
     del x0, x1
     torch.cuda.empty_cache()
     ragged = check_onchip_ragged(main["rx"]._demod)
@@ -1723,7 +1865,72 @@ def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdu
                       max_abs_err=r["max_abs_err"]) for r in rows],
         ragged_shapes_max_abs_err=ragged, checks_seconds=c_s,
         seconds=time.perf_counter() - t0)
-    return rows, dict(fused=fused_counts, split=split_counts, forms=forms["launches"])
+    say("k1_forms", card=smi, **k1_forms)
+    return rows, dict(fused=fused_counts, split=split_counts, forms=forms["launches"],
+                      stages=stage_counts)
+
+
+# --------------------------------------------------------------------------
+# DemodConfig.clock_max_block: the clock's segments
+# --------------------------------------------------------------------------
+
+CMB_CAP = 1 << 15            # the JAX package's own segmented drive's cap
+
+
+def clock_max_block_phase(cfg: DemodConfig, base: CF32, delays, smi: str) -> dict:
+    """One `Demodulator.block_batch` at C = 2048 x 131072 with
+    `clock_max_block=2^15` (four segments), exact and with
+    `clock_block_update=16`, on the capture's first block from a cold
+    start.  `num_slots` must be the reference's (4 x `max_symbols(2^15)`),
+    and the output's shape `(C, num_slots)`; the front end is run again on
+    the same block and the plain clock over the same segments (the block
+    update's chunk grid starting again at each) must give the
+    `block_batch`'s soft symbols and `valid` bit for bit; K2 against that
+    plain clock at those segments, every output and carry.  The block
+    updates' launches are counted in the `block_batch` calls alone."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    x = make_block(base, delays, 0, gen)
+    xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+    out = dict(shape=[CHANNELS, BLOCK_LEN], clock_max_block=CMB_CAP)
+    for K in (0, ONCHIP_CLOCK_K):
+        c = dataclasses.replace(cfg, clock_max_block=CMB_CAP, clock_block_update=K)
+        d = Demodulator(c, BLOCK_LEN)
+        segs = d.clock_segments
+        want_slots = segs * clock_recovery.max_symbols(BLOCK_LEN // segs, d._clock)
+        st = d.init_state_batch(CHANNELS)
+        reset_counts()
+        (soft, valid, _), ms = once_ms(lambda: d.block_batch(x, st))
+        counts = read_counts()
+        check_counts(f"clock_max_block block_batch (K = {K})", counts,
+                     ("frontend", "clock_bu" if K else "clock"))
+        if segs != 4 or d.num_slots != want_slots:
+            fail(f"clock_max_block: {segs} segments and {d.num_slots} slots, not 4 and "
+                 f"{want_slots}")
+        if soft.shape != (CHANNELS, d.num_slots) or valid.shape != soft.shape:
+            fail(f"clock_max_block: outputs {tuple(soft.shape)}, not "
+                 f"{(CHANNELS, d.num_slots)}")
+        yT = frontend_cuda.demod_frontend(xT, st.agc_gain, st.rrc_hist, st.costas,
+                                          d._agc, d._rrc_taps, d._costas)[0]
+        args = (yT, st.clock, d._clock, d.num_slots, cfg.clock_interp, K, segs)
+        k = clock_cuda.clock_recovery_block_kernel_batch_cl(*args)
+        p, pms = once_ms(lambda: clock_cuda.clock_recovery_block_plain_cl(*args))
+        errs = clock_errs(k, p, f"clock_max_block K={K}")
+        if not (torch.equal(valid, p[1]) and torch.equal(soft, p[0].re)):
+            fail(f"clock_max_block (K = {K}): block_batch's symbols or valid differ from the "
+                 "plain chain's")
+        if not max(errs) <= 0.0:
+            fail(f"clock_max_block (K = {K}): K2 differs from its plain version: {errs}")
+        n = valid.sum(-1)
+        out["block_update_16" if K else "exact"] = dict(
+            segments=segs, num_slots=d.num_slots,
+            num_slots_default_cap=Demodulator(dataclasses.replace(c, clock_max_block=0),
+                                              BLOCK_LEN).num_slots,
+            symbols_per_channel_min_max=[int(n.min()), int(n.max())],
+            max_abs_err=max(errs), block_batch_ms=ms, plain_clock_ms=pms, launches=counts)
+        del soft, valid, yT, k, p
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2230,6 +2437,89 @@ def decode_multi_phase(vcdus, smi: str) -> dict:
                        "time under torch.profiler, one call")
 
 
+
+
+RS_FEW, RS_MANY = 16, 256    # frames with an error burst: 4 codewords each
+
+
+def rs_sparse_phase(vcdus, smi: str) -> dict:
+    """The RS decoder's branches inside `CaduDecoder.decode_frames` at
+    B = 2048 frames (8192 codewords, the automatic Kmax 512): the same
+    frames with an error burst (600 coded symbols of noise) in RS_FEW
+    frames (at most Kmax codewords in error: the sparse branch) and in
+    RS_MANY (more than Kmax: every row corrected), each decoded with the
+    automatic Kmax and with XRIT_RS_SPARSE=0 (the errored rows, found by a
+    variable-length read).  Every `FrameBatch` field must be equal between
+    the two; each case's errored codewords must fall on its side of Kmax.
+    Prints the times of `decode_frames` and, counted with CUDA's
+    synchronisation debug mode, the host reads of each `rs_decode` call."""
+    B = CHANNELS
+    per = []
+    for s in range(STREAMS):
+        sym = tx.encode_stream(vcdus[s][:8], lrit=True, noise=0.0,
+                               rng=np.random.default_rng(SEED + 60 + s))
+        per.append(sym[: 8 * K.CODED_FRAME_SIZE].reshape(8, K.CODED_FRAME_SIZE))
+    base = torch.from_numpy(np.concatenate(per)).to(DEV).repeat(B // (8 * STREAMS), 1)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 61)
+    clean = base + 0.3 * torch.randn(base.shape, generator=gen, device=DEV)
+    tails = torch.zeros((B, 64), device=DEV)
+    dec = CaduDecoder(DecoderConfig(mode="lrit"))
+    kmax = reed_solomon._default_sparse_max(4 * B)
+    rs_call = reed_solomon.rs_decode_frame
+    reads: list = []
+
+    def counted(frames):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = rs_call(frames)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        reads.append(sum("called a synchronizing CUDA operation" in str(m.message) for m in w))
+        return out
+
+    out = dict(frames=B, codewords=4 * B, kmax=kmax)
+    dec.decode_frames(clean, tails)            # tables and kernels loaded
+    for name, nburst in (("few", RS_FEW), ("many", RS_MANY)):
+        frames = clean.clone()
+        hit = torch.randperm(B, generator=gen, device=DEV)[:nburst]
+        frames[hit, 2000:2600] = torch.randn((nburst, 600), generator=gen, device=DEV)
+        res = {}
+        for mode in ("auto", "off"):
+            os.environ["XRIT_RS_SPARSE"] = "1" if mode == "auto" else "0"
+            before = dict(reed_solomon.branches)
+            reed_solomon.rs_decode_frame, reads[:] = counted, []
+            try:
+                batch, _ = dec.decode_frames(frames, tails)
+            finally:
+                reed_solomon.rs_decode_frame = rs_call
+            took = {k: v - before[k] for k, v in reed_solomon.branches.items() if v != before[k]}
+            ms = time_ms(lambda: dec.decode_frames(frames, tails), 5)
+            res[mode] = dict(batch=batch, ms=ms, host_reads_per_rs_call=list(reads),
+                             branch=took)
+        os.environ.pop("XRIT_RS_SPARSE", None)
+        a, b = res["auto"]["batch"], res["off"]["batch"]
+        for f in a._fields:
+            if not same_state(getattr(a, f), getattr(b, f)):
+                fail(f"rs sparse ({name}): FrameBatch.{f} differs with the sparse path off")
+        errored = int((a.rs_errors != 0).sum())
+        if (name == "few") != (0 < errored <= kmax) or errored == 0:
+            fail(f"rs sparse ({name}): {errored} errored codewords against Kmax {kmax}")
+        want = "sparse" if name == "few" else "full"
+        if res["auto"]["branch"] != {want: 1} or res["off"]["branch"] != {"rows": 1}:
+            fail(f"rs sparse ({name}): branches {res['auto']['branch']} and "
+                 f"{res['off']['branch']}")
+        if res["auto"]["host_reads_per_rs_call"] != [1]:
+            fail(f"rs sparse ({name}): {res['auto']['host_reads_per_rs_call']} host reads in "
+                 "one rs_decode call, not one")
+        out[name] = dict(
+            burst_frames=nburst, errored_codewords=errored,
+            frames_ok=int(a.frame_ok.sum()),
+            **{f"{m}_{k}": res[m][k] for m in res for k in ("ms", "host_reads_per_rs_call",
+                                                            "branch")})
+        del frames, res, a, b
+    return out
 # --------------------------------------------------------------------------
 # the parallel layer: fold-parallel reprocess at full width, the three axes
 # --------------------------------------------------------------------------
@@ -2240,7 +2530,9 @@ FOLDS = 128
 MESH_ENTRIES = 4         # repeated cuda:0 entries: a mesh on one card
 MESH_CPD = 128           # channels a slab (channel axis, sharded fused)
 MESH_FUSED_BLOCKS = 4
-TB_BLOCK = 1 << 20       # the reference's default time block
+# Samples a time block.  The reference's default is 2^20; the script runs
+# 2^19 (still past 2^17: a segmented slot budget) to stay in its time budget.
+TB_BLOCK = 1 << 19
 TB_BLOCKS = 4
 TB_LANE_TOL = 5e-4        # batched time-block rows against one-lane `process`: the serial tolerance
 PARALLEL_KERNELS = ("frontend", "clock", "viterbi", "ring_append", "ring_extract",
@@ -2418,7 +2710,7 @@ def mesh_axes(base: CF32, delays, vcdus, counted: _Counted) -> dict:
         decode_frames=C, decode_bit_exact=dec_ok, decode_ok=int(batch.frame_ok.sum()))
     del x, soft, valid, rs, rv, frames, batch
 
-    # Time-block axis: D blocks of 2^20 (+ halo) as the rows of one batched
+    # Time-block axis: D blocks of TB_BLOCK (+ halo) as the rows of one batched
     # split-path launch, frames through a StreamDecoder per block; the rows
     # against one-lane `process` calls on the same extended blocks.
     tcfg = cfg
@@ -2620,8 +2912,7 @@ TOOL_KERNELS = {
     "chain_bench": ("agc_block", "costas_block", "clock"),
     "stage_profile": ("frontend", "clock_sinc"),
     "clock_bench": ("clock", "clock_sinc", "clock_bu"),
-    "frontend_bench": ("frontend", "frontend_bk8", "frontend_bf16", "frontend_bk8_bf16",
-                       "clock", "agc_block", "costas_block"),
+    "frontend_bench": ("frontend", "clock", "agc_block", "costas_block", *FRONTEND_FORMS),
     "host_budget_profile": ("frontend", "clock"),
     "drive_demod": ("frontend", "clock"),
 }
@@ -2858,6 +3149,8 @@ def main() -> None:
         fail(f"clock: every instance must build without spill, mmse without stack frame: {k2}")
 
     say("fir", card=smi, **check_fir())
+    say("fir_matmul", card=smi, **check_fir_matmul())
+    torch.cuda.empty_cache()
     say("scan", card=smi, **check_scan())
     app_captures = start_app_captures()
     parallel_captures = start_parallel_captures()
@@ -2881,7 +3174,9 @@ def main() -> None:
     rows.append(check_roll())
     say("kernels", card=smi, ragged_shapes_max_abs_err=check_ragged(rx), kernels=[
         dict(name=r["name"], max_abs_err=r["max_abs_err"], tolerance=r["tolerance"],
-             kernel_ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"])
+             kernel_ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+             **({"nearest_library_call": r["nearest_library_call"]}
+                if "nearest_library_call" in r else {}))
         for r in rows])
 
     main_blocks: list = []
@@ -2904,6 +3199,8 @@ def main() -> None:
         dict(rx=rx, state=state, ms=main_ms, per_block=main_blocks, delivered=delivered),
         dict(ms=split_ms), rows, smi)
     del rx, state
+    torch.cuda.empty_cache()
+    say("clock_max_block", card=smi, **clock_max_block_phase(cfg, base, delays, smi))
     torch.cuda.empty_cache()
 
     # The fused receive with the sinc interpolator: K2's other instance on
@@ -2933,6 +3230,8 @@ def main() -> None:
     apps_counts = apps_phase(smi, app_captures)
     say("decode_multi", **decode_multi_phase(vcdus, smi))
     torch.cuda.empty_cache()
+    say("rs_sparse", card=smi, **rs_sparse_phase(vcdus, smi))
+    torch.cuda.empty_cache()
     parallel_counts = parallel_phase(smi, parallel_captures, base, delays, vcdus)
     torch.cuda.empty_cache()
     tools_counts = tools_phase(smi)
@@ -2948,9 +3247,10 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # The new instances: launches from the path that runs each (the on-chip
-    # fused receive, the block-update split path, or the forms' block_batch).
+    # fused receive, the block-update split path, the forms' block_batch, or
+    # K1's one-loop forms called as their op).
     for r in onchip_rows:
-        for path in ("fused", "split", "forms"):
+        for path in ("fused", "split", "forms", "stages"):
             n = onchip_counts[path].get(r["name"], 0)
             if n and "launches" not in r:
                 r["launches"], r["path"] = n, f"onchip_{path}"

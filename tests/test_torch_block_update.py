@@ -3,9 +3,10 @@ kernels repeat step for step on the card) against the JAX package's forms.
 
   - `costas_block_update` (K6's slab form, K1's slab Costas loop) against the
     JAX `costas_block_update`; K = 1 the exact loop bit for bit.
-  - The fused front end with `block_k` (the slab AGC and Costas loop) and
-    with `precision="bf16"` against `demod_frontend_pallas(interpret=True)`
-    at C = 128, rows 256.
+  - The fused front end with `block_k` (the slab AGC and Costas loop; with
+    `block_stages` "agc" or "costas" the slab on that loop alone) and with
+    `precision="bf16"` against `demod_frontend_pallas(interpret=True)` at
+    C = 128, rows 256.
   - `clock_recovery_block_update_batch` (K2's block update), mmse and sinc,
     at the LRIT and HRIT sample rates, against the JAX XLA form at K = 16 and
     the Pallas kernel in interpret mode at K = 4 (the JAX package's
@@ -155,13 +156,17 @@ def _fe_setup(T, seed):
     return re, im, taps, gain, hr, hi, phase, freq
 
 
-# (T, block_k, precision, AGC rate).  With bf16 a float32 AGC output one ulp
-# apart on the two sides (XLA on the CPU fuses the gain update's
-# multiply-add) can round to neighbouring bfloat16 values, a jump of a bf16
-# ulp; so the bf16 cases hold the gain still (rate 0: the AGC output is one
-# product, the same on both sides) and test the filter's rounding exactly,
-# while the slab AGC is held in the float32 case and in float64 below.
-FE_CASES = [(1024, 4, "highest", 0.01), (1024, 0, "bf16", 0.0), (2048, 8, "bf16", 0.0)]
+# (T, block_k, precision, AGC rate, block_stages).  With bf16 a float32 AGC
+# output one ulp apart on the two sides (XLA on the CPU fuses the gain
+# update's multiply-add) can round to neighbouring bfloat16 values, a jump of
+# a bf16 ulp; so the bf16 cases hold the gain still (rate 0: the AGC output
+# is one product, the same on both sides) and test the filter's rounding
+# exactly, while the slab AGC is held in the float32 cases and in float64
+# below.
+FE_CASES = [(1024, 4, "highest", 0.01, "both"), (1024, 0, "bf16", 0.0, "both"),
+            (2048, 8, "bf16", 0.0, "both"),
+            (1024, 8, "highest", 0.01, "agc"), (1024, 8, "highest", 0.01, "costas"),
+            (1024, 8, "bf16", 0.0, "agc"), (1024, 8, "bf16", 0.0, "costas")]
 
 
 @pytest.fixture(scope="module")
@@ -169,18 +174,19 @@ def frontend_runs():
     """Each case through the Pallas kernel (interpret) and the port's plain
     form, from the same inputs."""
     out = {}
-    for T, K, prec, rate in FE_CASES:
+    for T, K, prec, rate, stages in FE_CASES:
         re, im, taps, gain, hr, hi, phase, freq = _fe_setup(T, 100 + K)
         jy, jg, jh, js = demod_frontend_pallas(
             _jcf(re.T.copy(), im.T.copy()), jnp.asarray(gain), _jcf(hr, hi),
             jcostas.CostasState(jnp.asarray(phase), jnp.asarray(freq)),
             jagc.AgcParams(rate=rate), tuple(float(v) for v in taps),
-            jcostas.costas_gains(0.0037), rows=256, interpret=True, block_k=K, precision=prec)
+            jcostas.costas_gains(0.0037), rows=256, interpret=True, block_k=K, precision=prec,
+            block_stages=stages)
         ty, tg, th, ts = frontend_cuda.demod_frontend(
             _tcf(re.T.copy(), im.T.copy()), _t(gain), _tcf(hr, hi),
             tcostas.CostasState(_t(phase), _t(freq)), tagc.AgcParams(rate=rate), _t(taps),
-            tcostas.costas_gains(0.0037), block_k=K, precision=prec)
-        out[T, K, prec, rate] = (jy, jg, jh, js), (ty, tg, th, ts)
+            tcostas.costas_gains(0.0037), block_k=K, precision=prec, block_stages=stages)
+        out[T, K, prec, rate, stages] = (jy, jg, jh, js), (ty, tg, th, ts)
     return out
 
 
@@ -247,6 +253,22 @@ def test_frontend_form_arguments():
     # The slab forms' AGC warp sits beside the Costas warp (scheduler 3).
     assert frontend_cuda.roles(0).index("agc") % 4 != 3
     assert frontend_cuda.roles(64)[3] == "costas" and frontend_cuda.roles(64)[7] == "agc"
+    # With the slab on one loop the Costas warp keeps scheduler 3 to itself
+    # and the AGC warp sits among the FIR warps, as in the exact form.
+    for K in (8, 64):
+        for stages in ("agc", "costas"):
+            r = frontend_cuda.roles(K, stages)
+            assert r[3] == "costas" and r.index("agc") % 4 != 3
+            assert [w for w, name in enumerate(r) if w % 4 == 3 and name] == [3]
+            assert sorted(n for n in r if n) == sorted(n for n in frontend_cuda.roles(K) if n)
+    assert frontend_cuda.roles(8, "agc") == frontend_cuda.roles(8, "costas") == \
+        frontend_cuda.roles(0)
+    with pytest.raises(ValueError):
+        frontend_cuda.demod_frontend(*args, block_k=8, block_stages="costa")
+    with pytest.raises(ValueError):
+        frontend_cuda.demod_frontend_plain(*args, block_k=8, block_stages="all")
+    with pytest.raises(ValueError):
+        frontend_cuda.roles(8, "none")
 
 
 # --------------------------------------------------------------------------

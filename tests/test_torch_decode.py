@@ -178,6 +178,19 @@ def _rs_frames(rng, regime, B=6):
     return frames
 
 
+def _rs_codewords(rng, B, nbad, uncorrectable=False):
+    """`(B, 255)` dual-basis codewords, `nbad` of them (spread over the batch)
+    with 1-16 symbol errors; with `uncorrectable`, every third of those with
+    17-24 instead."""
+    cw = trs.rs_encode_np(rng.integers(0, 256, (B, 223)).astype(np.uint8))
+    for i, b in enumerate(np.sort(rng.choice(B, size=nbad, replace=False))):
+        n = int(rng.integers(17, 25)) if uncorrectable and i % 3 == 0 else \
+            int(rng.integers(1, 17))
+        pos = rng.choice(255, size=n, replace=False)
+        cw[b, pos] ^= rng.integers(1, 256, size=n).astype(np.uint8)
+    return cw
+
+
 class TestReedSolomon:
     def test_encoder_matches(self, rng):
         data = rng.integers(0, 256, (5, 223)).astype(np.uint8)
@@ -207,6 +220,50 @@ class TestReedSolomon:
             assert int(nerr.max()) > 0 and int(nerr.min()) >= 0
         if regime == "uncorrectable":
             assert (nerr == -1).any() and (nerr == 0).any()
+
+    @pytest.mark.parametrize("regime", ["few", "more", "clean", "uncorrectable",
+                                        "uncorrectable_more"])
+    @pytest.mark.parametrize("B,sparse_max", [(16, 4), (1024, None)])
+    def test_sparse_path_matches(self, rng, monkeypatch, regime, B, sparse_max):
+        """`rs_decode(sparse_max=)` bit-identical to the JAX one at the same
+        Kmax (None: the automatic rule, 128 at 1024 rows) in every regime:
+        at most Kmax rows in error (the sparse branch, clean rows among the
+        Kmax), more than Kmax (every row corrected), none, and uncorrectable
+        rows among few or many; and the branch each takes."""
+        monkeypatch.delenv("XRIT_RS_SPARSE", raising=False)
+        kmax = sparse_max or trs._default_sparse_max(B)
+        assert kmax == (4 if B == 16 else 128)
+        nbad = {"few": kmax // 2 + 1, "more": kmax + 3, "clean": 0,
+                "uncorrectable": kmax - 1, "uncorrectable_more": 2 * kmax}[regime]
+        cw = _rs_codewords(rng, B, nbad, uncorrectable=regime.startswith("uncorrectable"))
+        before = dict(trs.branches)
+        corr, nerr = trs.rs_decode(torch.from_numpy(cw), sparse_max=sparse_max)
+        jc, jn = jrs.rs_decode(jnp.asarray(cw), sparse_max=sparse_max)
+        np.testing.assert_array_equal(nerr.numpy(), np.asarray(jn))
+        np.testing.assert_array_equal(corr.numpy(), np.asarray(jc))
+        assert int((nerr != 0).sum()) == nbad
+        took = {k for k in trs.branches if trs.branches[k] != before[k]}
+        assert took == {"clean" if nbad == 0 else "sparse" if nbad <= kmax else "full"}
+        if regime.startswith("uncorrectable"):
+            assert (nerr == -1).any() and (nerr > 0).any()
+
+    def test_sparse_path_off(self, rng, monkeypatch):
+        """XRIT_RS_SPARSE=0 (read at the call) and `sparse_max=0` both take
+        the errored rows alone; the results are the JAX full path's."""
+        cw = _rs_codewords(rng, 1024, 20)
+        monkeypatch.setenv("XRIT_RS_SPARSE", "0")
+        assert trs._default_sparse_max(1024) == 0
+        jc, jn = jrs.rs_decode(jnp.asarray(cw), sparse_max=0)
+        for kw in ({}, {"sparse_max": 0}, {"sparse_max": 1024}):
+            before = trs.branches["rows"]
+            corr, nerr = trs.rs_decode(torch.from_numpy(cw), **kw)
+            assert trs.branches["rows"] == before + 1, kw
+            np.testing.assert_array_equal(nerr.numpy(), np.asarray(jn))
+            np.testing.assert_array_equal(corr.numpy(), np.asarray(jc))
+        monkeypatch.setenv("XRIT_RS_SPARSE", "1")
+        assert trs._default_sparse_max(1024) == 128
+        assert [trs._default_sparse_max(b) for b in (512, 2048, 8192, 65536)] == \
+            [0, 128, 512, 4096]
 
     def test_interleave_round_trip(self, rng):
         frames = torch.from_numpy(rng.integers(0, 256, (2, 1020)).astype(np.uint8))

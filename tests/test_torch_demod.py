@@ -68,6 +68,51 @@ class TestStages:
             np.testing.assert_allclose(ty.im.numpy(), np.asarray(jy.im), atol=1e-6)
             np.testing.assert_array_equal(th.re.numpy(), np.asarray(jh.re))
 
+    def test_banded_matmul_fir(self, rng):
+        """`fir_block(method="matmul")` and `fir_block_real_matmul` against the
+        JAX package's, two chained blocks of the RRC at LRIT: reduction order
+        only.  Each output y[n] = sum_k t_k x_{n+k} of each side lies within
+        gamma_N = N * 2^-24 times sum_k |t_k x_{n+k}| of its float64 value
+        (the float32 bound for N products summed in any order), so the two
+        sides within twice that; the histories bit-equal."""
+        cfg = JDemodConfig.lrit()
+        taps = jfilters.rrc_taps(1.0, cfg.circuit_sample_rate, cfg.symbol_rate, cfg.rrc_alpha,
+                                 63).astype(np.float32)
+        N, T = len(taps), 1024
+        re, im = _pair(rng, (3, 2 * T))
+        jh, th = jfir.fir_init(N, (3,)), tfir.fir_init(N, (3,))
+        gamma = N * 2.0 ** -24
+        for lo in (0, T):
+            xs = (re[:, lo:lo + T], im[:, lo:lo + T])
+            ext = [np.concatenate([np.asarray(h), x], -1).astype(np.float64)
+                   for h, x in zip((jh.re, jh.im), xs)]
+            jy, jh = jfir.fir_block(JCF(*map(jnp.asarray, xs)), jnp.asarray(taps), jh,
+                                    method="matmul")
+            cy, _ = tfir.fir_block(TCF(*map(_t, xs)), _t(taps), th)
+            ty, th = tfir.fir_block(TCF(*map(_t, xs)), _t(taps), th, method="matmul")
+            for e, t_, j_, c_ in zip(ext, (ty.re, ty.im), (jy.re, jy.im), (cy.re, cy.im)):
+                win = np.lib.stride_tricks.sliding_window_view(e, N, axis=-1)[:, :T]
+                exact = win @ taps.astype(np.float64)
+                scale = np.abs(win) @ np.abs(taps.astype(np.float64))
+                assert (np.abs(t_.numpy() - exact) <= gamma * scale).all()
+                assert (np.abs(np.asarray(j_) - exact) <= gamma * scale).all()
+                assert (np.abs(t_.numpy() - np.asarray(j_)) <= 2 * gamma * scale).all()
+                assert (np.abs(t_.numpy() - c_.numpy()) <= 2 * gamma * scale).all()
+            np.testing.assert_array_equal(th.re.numpy(), np.asarray(jh.re))
+            np.testing.assert_array_equal(th.im.numpy(), np.asarray(jh.im))
+        yr, hr = tfir.fir_block_real_matmul(_t(re[:, :T]), _t(taps), th.re, block=128)
+        jyr, jhr = jfir.fir_block_real_matmul(jnp.asarray(re[:, :T]), jnp.asarray(taps),
+                                              jh.re, block=128)
+        np.testing.assert_allclose(yr.numpy(), np.asarray(jyr), atol=1e-6)
+        np.testing.assert_array_equal(hr.numpy(), np.asarray(jhr))
+        x = TCF(_t(re[:, :T]), _t(im[:, :T]))
+        with pytest.raises(ValueError):
+            tfir.fir_block(x, _t(taps), th, 2, method="matmul")
+        with pytest.raises(ValueError):
+            tfir.fir_block(TCF(x.re[:, :1000], x.im[:, :1000]), _t(taps), th, method="matmul")
+        with pytest.raises(ValueError):
+            tfir.fir_block(x, _t(taps), th, method="banded")
+
     @pytest.mark.parametrize("scale", [0.3, 1e-5])
     def test_agc_is_the_exact_recursion(self, rng, scale):
         """Against `agc_block_exact`, also where the max-gain clamp binds

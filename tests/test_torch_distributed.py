@@ -50,6 +50,20 @@ def test_initialize_without_a_coordinator_is_a_no_op(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+def test_initialize_refuses_cards_that_do_not_exist(tmp_path, monkeypatch):
+    """`local_device_ids` name CUDA cards; ids past the visible cards (here
+    none) or an empty list are refused before any group starts."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for ids in ([2], [0, -1], []):
+        with pytest.raises(ValueError, match="local_device_ids"):
+            pdist.initialize("127.0.0.1:1", 2, 0, ids, backend="gloo")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="local_device_ids"):
+        pdist.initialize(init_method=f"file://{tmp_path}/store", num_processes=1,
+                         process_id=0, local_device_ids=[0], backend="gloo")
+    assert not torch.distributed.is_initialized()
+
+
 def test_initialize_needs_an_explicit_backend(tmp_path):
     with pytest.raises(ValueError):
         pdist.initialize(init_method=f"file://{tmp_path}/store", num_processes=1,

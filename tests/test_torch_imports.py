@@ -329,3 +329,109 @@ def test_launch_on_takes_the_device_and_stream_of_its_input(monkeypatch):
         assert stream == 0x5EED
         assert seen == [("device", OnCuda1.device), "enter", ("stream", OnCuda1.device)]
     assert seen[-1] == "exit"
+
+
+# -- the public surface: parameter names ------------------------------------------------
+
+# The JAX package's parameters that pick TPU layouts, not functions: ROADMAP's
+# "Deliberately not ported" list (the ops' and `parallel/` classes' `unroll`,
+# `chunk`, `superchunks`, `staging` and mesh `axis` arguments, and the JAX
+# `DemodConfig`'s TPU tuning fields).  Any other parameter of a public
+# function or method must exist in the port's counterpart.
+NOT_PORTED = frozenset({
+    "unroll", "chunk", "superchunks", "staging", "axis",
+    "agc_kernel", "costas_kernel", "fir_kernel", "clock_tile", "clock_superchunks",
+    "clock_chunk", "frontend_rows", "frontend_fir_inplace", "clock_kernel",
+})
+
+
+def _is_record(cls: ast.ClassDef) -> bool:
+    """A dataclass or NamedTuple: its fields are its constructor's parameters."""
+    names = {getattr(d, "id", getattr(d, "attr", None)) for d in cls.decorator_list}
+    names |= {getattr(d.func, "id", getattr(d.func, "attr", None))
+              for d in cls.decorator_list if isinstance(d, ast.Call)}
+    return "dataclass" in names or any(
+        getattr(b, "id", getattr(b, "attr", None)) == "NamedTuple" for b in cls.bases)
+
+
+def _public_signatures(path: str) -> dict:
+    """`{name: [parameter names in order]}` of a module's public functions
+    (and module-level aliases of them), its public classes' public methods
+    and `__init__` (`Class.method`), and its records' fields (`Class`)."""
+    tree = ast.parse(open(path).read())
+
+    def params(fn):
+        a = fn.args
+        return ([x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+                + [v.arg for v in (a.vararg, a.kwarg) if v is not None])
+
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if not node.name.startswith("_"):
+                out[node.name] = params(node)
+        elif isinstance(node, ast.Assign) and isinstance(node.value, ast.Name):
+            for t in node.targets:
+                if isinstance(t, ast.Name) and node.value.id in out:
+                    out[t.id] = out[node.value.id]
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            if _is_record(node):
+                out[node.name] = [s.target.id for s in node.body
+                                  if isinstance(s, ast.AnnAssign) and isinstance(s.target, ast.Name)]
+            for s in node.body:
+                if isinstance(s, (ast.FunctionDef, ast.AsyncFunctionDef)) and (
+                        not s.name.startswith("_") or s.name == "__init__"):
+                    out[f"{node.name}.{s.name}"] = params(s)
+    return out
+
+
+def _reference_modules() -> list:
+    """The JAX package's modules without Pallas kernels, as relative paths."""
+    base = os.path.join(ROOT, "xritdemod_tpu")
+    return sorted(
+        os.path.relpath(os.path.join(d, f), base)
+        for d, _, files in os.walk(base) for f in files
+        if f.endswith(".py") and not f.endswith("_pallas.py")
+    )
+
+
+@pytest.mark.parametrize("rel", _reference_modules())
+def test_every_public_parameter_has_its_counterpart(rel):
+    """Every public function, method and record of the JAX module exists in
+    the port's module of the same path, with every parameter name but the
+    TPU layout ones (NOT_PORTED)."""
+    ref = _public_signatures(os.path.join(ROOT, "xritdemod_tpu", rel))
+    if not ref:
+        return
+    port_path = os.path.join(ROOT, "xritdemod_tpu_torch", rel)
+    assert os.path.exists(port_path), rel
+    port = _public_signatures(port_path)
+    gaps = {name: [p for p in ps if p not in port.get(name, ()) and p not in NOT_PORTED]
+            for name, ps in ref.items()}
+    assert not [n for n in ref if n not in port], rel
+    assert not {n: g for n, g in gaps.items() if g}, rel
+
+
+# The repairs of the reference's surface pinned by place: the port's
+# parameters begin with the reference's, in the reference's order.
+PINNED = [("runtime/apps.py", "DemodulatorApp.__init__"), ("runtime/metrics.py", "trace"),
+          ("parallel/distributed.py", "initialize"), ("ops/reed_solomon.py", "rs_decode"),
+          ("ops/fir.py", "fir_block"), ("ops/fir.py", "fir_block_real_matmul")]
+
+
+@pytest.mark.parametrize("rel,name", PINNED)
+def test_repaired_parameters_keep_the_reference_places(rel, name):
+    ref = _public_signatures(os.path.join(ROOT, "xritdemod_tpu", rel))[name]
+    port = _public_signatures(os.path.join(ROOT, "xritdemod_tpu_torch", rel))[name]
+    assert port[:len(ref)] == ref, (rel, name, port)
+
+
+def test_the_walk_sees_the_repairs():
+    """The walk reads what it should: these parameters were missing before."""
+    sig = lambda rel, name: _public_signatures(os.path.join(ROOT, "xritdemod_tpu_torch", rel))[name]
+    assert sig("runtime/apps.py", "DemodulatorApp.__init__").index("realtime") == 7
+    assert sig("runtime/metrics.py", "trace")[0] == "log_dir"
+    assert sig("parallel/distributed.py", "initialize")[3] == "local_device_ids"
+    assert sig("ops/reed_solomon.py", "rs_decode") == ["received", "sparse_max"]
+    assert "clock_max_block" in sig("models/demodulator.py", "DemodConfig")
+    assert sig("ops/agc.py", "agc_block_exact") == sig("ops/agc.py", "agc_block")

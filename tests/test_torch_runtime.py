@@ -27,7 +27,7 @@ from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, qua
 from xritdemod_tpu_torch.models.receiver import FusedReceiver
 from xritdemod_tpu_torch.models.decoder import DecoderConfig
 from xritdemod_tpu_torch.runtime import checkpoint, config, native
-from xritdemod_tpu_torch.runtime.metrics import PipelineMetrics, trace
+from xritdemod_tpu_torch.runtime.metrics import TRACE_FILE, PipelineMetrics, trace
 from xritdemod_tpu_torch.runtime.statistics import Statistics
 from xritdemod_tpu_torch.runtime.symbol_manager import SampleFifo
 from xritdemod_tpu_torch.tools import interop_run
@@ -391,10 +391,10 @@ def test_metrics_rates_and_trace(tmp_path):
         time.sleep(0.01)
     assert m.samples.total == 5000 and m.samples.rate() > 0
     assert "Msamp/s" in m.summary()
-    path = str(tmp_path / "trace.json")
-    with trace(path) as p:
+    log_dir = str(tmp_path / "trace")
+    with trace(log_dir) as d:
         torch.ones(64).cumsum(0)
-    assert p == path and os.path.getsize(path) > 0
+    assert d == log_dir and os.path.getsize(os.path.join(log_dir, TRACE_FILE)) > 0
 
 
 # -- the command line ------------------------------------------------------------------

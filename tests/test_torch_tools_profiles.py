@@ -129,7 +129,9 @@ def test_frontend_bench_times_every_form_and_the_split_stages(capsys, monkeypatc
     with torch.inference_mode():
         assert frontend_bench.main(["both"] + CPU) == 0
         assert set(_last_json(capsys)["rows"]) == {
-            "frontend", "frontend_bk8", "frontend_bf16", "frontend_bk8_bf16", "clock_cl"}
+            "frontend", "frontend_bk8", "frontend_bf16", "frontend_bk8_bf16", "clock_cl",
+            "frontend_bk8_agc", "frontend_bk8_costas", "frontend_bk8_agc_bf16",
+            "frontend_bk8_costas_bf16"}
         assert frontend_bench.main(["split"] + CPU) == 0
         assert set(_last_json(capsys)["rows"]) == {"agc", "rrc_fir", "costas", "transpose"}
     monkeypatch.setenv("BENCH_FRONTEND_ROWS", "256")

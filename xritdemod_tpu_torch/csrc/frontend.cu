@@ -38,19 +38,21 @@
 // plain PyTorch version's does, sine, cosine and sqrtf are the accurate
 // forms, and the per-sample arithmetic is loops.cuh's, shared with stream.cu.
 //
-// Two more forms of the Pallas kernel, chosen per launch by template
-// (frontend_kernel<TR, SLAB, BF16>; <48, false, false> is the exact form):
+// More forms of the Pallas kernel, chosen per launch by template
+// (frontend_kernel<TR, SLAB_AGC, SLAB_COSTAS, BF16>; <48, false, false,
+// false> is the exact form):
 //
-//   SLAB   its block_k = K: the AGC warp computes a slab of K gains from an
+//   SLAB   its block_k = K (SLAB_AGC and SLAB_COSTAS both: its block_stages
+//          "both"; one of them: "agc" or "costas", the other loop exact):
+//          the AGC warp computes a slab of K gains from an
 //          affine prefix over the slab's magnitudes (ops/agc.agc_slab_gains:
 //          log2 K passes, in registers for K <= 16 and over a per-lane
 //          scratch column in shared memory above, the max-gain clamp exact
 //          through a running minimum), and the Costas warp runs the slab
 //          update of loops.cuh (K rotations that depend only on the slab's
 //          first phase and freq, taken a batch at a time, then one update of
-//          the loop filter): neither chain is a sample any more.  The AGC
-//          warp then has work enough to lose its scheduler's cycles to
-//          greedy FIR warps, so it moves beside the Costas warp (see Layout).  The AGC
+//          the loop filter): neither chain is a sample any more.  Which warp
+//          sits where then changes (see Layout).  The AGC
 //          needs whole slabs in a tile, so the tile is TR = 48 samples where
 //          K divides 48 and 64 (eight FIR warps) where K divides 64; slabs
 //          start at the block's first sample.  K is a launch argument.
@@ -86,24 +88,29 @@ enum Role { COSTAS = 3, IDLE7 = 7, IDLE11 = 11 };
 // The warp index of the n-th warp off scheduler 3.
 constexpr int off_costas_scheduler(int n) { return n + n / 3; }
 
-// With SLAB the AGC warp is no short chain any more but a slab's prefix, and
-// next to greedy FIR warps it would wait for the scheduler: it takes warp 7,
-// beside the Costas warp on scheduler 3 (the Costas warp's slab walk, too,
-// has independent work at every step).
-template <int TR, bool SLAB>
+// The Costas warp has scheduler 3 to itself in every form: the exact chain
+// waits on its own last result, and the slab walk, which has independent
+// work at every step, is issue-bound (among the FIR warps it makes the
+// SLAB_COSTAS-only form half again as slow; tools/kernel_probe.py
+// frontend_bk8_costas, PERF.md).  The AGC warp sits among the FIR warps: its
+// exact chain keeps up there, and its slab prefix is no faster beside the
+// exact Costas chain, which it then slows.  With both slabs it takes warp 7,
+// beside the Costas slab walk on scheduler 3.
+template <int TR, bool SLAB_AGC, bool SLAB_COSTAS>
 struct Layout {
     static constexpr int FIR_WARPS = TR / FIR_R;
     static constexpr int FIR_THREADS = FIR_WARPS * 32;
     static constexpr int LOADER = off_costas_scheduler(FIR_WARPS),
                          MAG = off_costas_scheduler(FIR_WARPS + 1),
-                         AGC = SLAB ? IDLE7 : off_costas_scheduler(FIR_WARPS + 2),
+                         AGC = SLAB_AGC && SLAB_COSTAS ? IDLE7
+                                                       : off_costas_scheduler(FIR_WARPS + 2),
                          STORE = off_costas_scheduler(FIR_WARPS + 3);
     static constexpr int NWARPS = STORE + 1;
     static_assert(TR % FIR_R == 0 && FIR_WARPS <= 8, "tile");
 };
-static_assert(Layout<48, false>::LOADER == 8 && Layout<48, false>::MAG == 9
-              && Layout<48, false>::AGC == 10 && Layout<48, false>::STORE == 12
-              && Layout<48, false>::NWARPS == 13, "the exact form's warps");
+static_assert(Layout<48, false, false>::LOADER == 8 && Layout<48, false, false>::MAG == 9
+              && Layout<48, false, false>::AGC == 10 && Layout<48, false, false>::STORE == 12
+              && Layout<48, false, false>::NWARPS == 13, "the exact form's warps");
 
 // The FIR index of a FIR warp.
 template <int TR>
@@ -133,7 +140,7 @@ struct FrontArgs {
 };
 
 // The fixed part of shared memory; the FIR ring (2 x win x 32 floats)
-// follows, and with SLAB the AGC's scratch (3 x TR x 32 floats).
+// follows, and with SLAB_AGC the AGC's scratch (3 x TR x 32 floats).
 template <int TR>
 struct Tiles {
     float xr[NX][TR][32];
@@ -285,7 +292,7 @@ __device__ __forceinline__ void agc_slab_regs(const FrontArgs& a, float* m, floa
     g = met;
 }
 
-template <int TR, bool SLAB>
+template <int TR, bool SLAB_AGC>
 __device__ __forceinline__ void agc_chain(const FrontArgs& a, Tiles<TR>& s, float* scratch,
                                           const Group& g) {
     float gain = a.gain_in[g.cc];
@@ -293,7 +300,7 @@ __device__ __forceinline__ void agc_chain(const FrontArgs& a, Tiles<TR>& s, floa
         const int xs = i % NX, turn = i / NX;
         mbar_wait(&s.m_full[xs], turn & 1);
         const int n = min(TR, a.T - i * TR);
-        if constexpr (SLAB) {
+        if constexpr (SLAB_AGC) {
             float* A = scratch + g.lane;
             if (a.bk <= 8) {
 #pragma unroll 1
@@ -336,8 +343,8 @@ __device__ __forceinline__ void agc_chain(const FrontArgs& a, Tiles<TR>& s, floa
 template <int TR, bool BF16>
 __device__ __forceinline__ void fir_stage(const FrontArgs& a, Tiles<TR>& s, float* er, float* ei,
                                           const Group& g, int w) {
-    constexpr int FIR_WARPS = Layout<TR, false>::FIR_WARPS;
-    constexpr int FIR_THREADS = Layout<TR, false>::FIR_THREADS;
+    constexpr int FIR_WARPS = Layout<TR, false, false>::FIR_WARPS;
+    constexpr int FIR_THREADS = Layout<TR, false, false>::FIR_THREADS;
     const int nh = a.ntaps - 1, mask = a.win - 1, lane = g.lane;
     const int blocks = (a.ntaps + FIR_PAD + FIR_R - 1) / FIR_R;    // of FIR_R ring rows
     for (int m = w * 32 + lane; m < (blocks + 1) * FIR_R; m += FIR_THREADS) {
@@ -432,7 +439,7 @@ __device__ __forceinline__ void fir_stage(const FrontArgs& a, Tiles<TR>& s, floa
     }
 }
 
-template <int TR, bool SLAB>
+template <int TR, bool SLAB_COSTAS>
 __device__ __forceinline__ void costas_chain(const FrontArgs& a, Tiles<TR>& s, const Group& g) {
     float phase = a.phase_in[g.cc], freq = a.freq_in[g.cc];
     CostasSlab slab{phase, freq, 0.0f, 0.0f, 0};
@@ -440,7 +447,7 @@ __device__ __forceinline__ void costas_chain(const FrontArgs& a, Tiles<TR>& s, c
         const int fs = i % NF, fturn = i / NF;
         mbar_wait(&s.f_full[fs], fturn & 1);
         const int n = min(TR, a.T - i * TR);
-        if constexpr (SLAB) {
+        if constexpr (SLAB_COSTAS) {
             costas_slab_walk(&s.fr[fs][0][g.lane], &s.fi[fs][0][g.lane], 32, n, slab, a.bk,
                              a.alpha, a.beta, a.freq_min, a.freq_max, a.nwrap);
         } else if (n == TR) {
@@ -477,7 +484,7 @@ __device__ __forceinline__ void costas_chain(const FrontArgs& a, Tiles<TR>& s, c
         }
         mbar_arrive(&s.y_full[fs]);
     }
-    if constexpr (SLAB) {
+    if constexpr (SLAB_COSTAS) {
         phase = slab.phase;
         freq = slab.freq;
     }
@@ -507,9 +514,10 @@ __device__ __forceinline__ void store_tiles(const FrontArgs& a, Tiles<TR>& s, co
     }
 }
 
-template <int TR, bool SLAB, bool BF16>
-__global__ void __launch_bounds__(Layout<TR, SLAB>::NWARPS * 32, 1) frontend_kernel(const FrontArgs a) {
-    using L = Layout<TR, SLAB>;
+template <int TR, bool SLAB_AGC, bool SLAB_COSTAS, bool BF16>
+__global__ void __launch_bounds__(Layout<TR, SLAB_AGC, SLAB_COSTAS>::NWARPS * 32, 1)
+frontend_kernel(const FrontArgs a) {
+    using L = Layout<TR, SLAB_AGC, SLAB_COSTAS>;
     constexpr int FIR_THREADS = L::FIR_THREADS;
     extern __shared__ __align__(16) unsigned char smem[];
     Tiles<TR>& s = *reinterpret_cast<Tiles<TR>*>(smem);
@@ -544,10 +552,10 @@ __global__ void __launch_bounds__(Layout<TR, SLAB>::NWARPS * 32, 1) frontend_ker
     const long long role_t0 = role_clock_start();
     if (role == L::LOADER) load_tiles(a, s, g);
     else if (role == L::MAG) magnitudes(s, g);
-    else if (role == L::AGC) agc_chain<TR, SLAB>(a, s, ei + a.win * 32, g);
-    else if (role == COSTAS) costas_chain<TR, SLAB>(a, s, g);
+    else if (role == L::AGC) agc_chain<TR, SLAB_AGC>(a, s, ei + a.win * 32, g);
+    else if (role == COSTAS) costas_chain<TR, SLAB_COSTAS>(a, s, g);
     else if (role == L::STORE) store_tiles(a, s, g);
-    else if (SLAB ? (role & 3) != 3 && role < L::LOADER : role != IDLE7 && role != IDLE11)
+    else if ((role & 3) != 3 && role < L::LOADER)
         fir_stage<TR, BF16>(a, s, er, ei, g, fir_index<TR>(role));
     role_clock_stop(role_t0);
 }
@@ -576,18 +584,33 @@ extern "C" int xrit_trig_mismatches(float lo, float hi, long long n, void* misma
     return (int)cudaGetLastError();
 }
 
-template <int TR, bool SLAB, bool BF16>
+template <int TR, bool SLAB_AGC, bool SLAB_COSTAS, bool BF16>
 static int launch_frontend(FrontArgs a, void* stream) {
     a.win = 64;
     while (a.win < a.ntaps - 1 + 2 * TR) a.win *= 2;
     const size_t shared = sizeof(Tiles<TR>) + (size_t)2 * a.win * 32 * sizeof(float)
-        + (SLAB ? (size_t)3 * TR * 32 * sizeof(float) : 0);
+        + (SLAB_AGC ? (size_t)3 * TR * 32 * sizeof(float) : 0);
+    const auto kernel = frontend_kernel<TR, SLAB_AGC, SLAB_COSTAS, BF16>;
     int err = (int)cudaFuncSetAttribute(
-        frontend_kernel<TR, SLAB, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
     if (err) return err;
-    frontend_kernel<TR, SLAB, BF16><<<(a.C + 31) / 32, Layout<TR, SLAB>::NWARPS * 32, shared,
-                                      (cudaStream_t)stream>>>(a);
+    kernel<<<(a.C + 31) / 32, Layout<TR, SLAB_AGC, SLAB_COSTAS>::NWARPS * 32, shared,
+             (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+// The slab forms of tile TR: stages 3 both loops, 1 the AGC, 2 the Costas.
+template <int TR>
+static int launch_slab(const FrontArgs& a, int stages, bool bf16, void* stream) {
+    switch (stages * 2 + bf16) {
+        case 6: return launch_frontend<TR, true, true, false>(a, stream);
+        case 7: return launch_frontend<TR, true, true, true>(a, stream);
+        case 2: return launch_frontend<TR, true, false, false>(a, stream);
+        case 3: return launch_frontend<TR, true, false, true>(a, stream);
+        case 4: return launch_frontend<TR, false, true, false>(a, stream);
+        case 5: return launch_frontend<TR, false, true, true>(a, stream);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 static FrontArgs front_args(
@@ -629,12 +652,13 @@ extern "C" int xrit_frontend(
                                    gain_out, phase_in, freq_in, phase_out, freq_out, T, C,
                                    ntaps, rate, reference, max_gain, alpha, beta, freq_min,
                                    freq_max);
-    return launch_frontend<48, false, false>(a, stream);
+    return launch_frontend<48, false, false, false>(a, stream);
 }
 
 // The same with the slab form (block_k = bk > 0, T a multiple of bk, bk
-// dividing 48 or 64; nwrap the Costas wrap steps a slab) and / or the bf16
-// filter products (bf16 != 0).
+// dividing 48 or 64; nwrap the Costas wrap steps a slab; stages which loops
+// take it: 1 the AGC, 2 the Costas loop, 3 both) and / or the bf16 filter
+// products (bf16 != 0).
 extern "C" int xrit_frontend_form(
     const void* xr, const void* xi, const void* hr, const void* hi,
     void* hr_out, void* hi_out, void* yr, void* yi, const void* taps,
@@ -643,9 +667,9 @@ extern "C" int xrit_frontend_form(
     int T, int C, int ntaps,
     float rate, float reference, float max_gain,
     float alpha, float beta, float freq_min, float freq_max,
-    int bk, int nwrap, int bf16, void* stream) {
+    int bk, int nwrap, int stages, int bf16, void* stream) {
     if (ntaps < 1 || ntaps > FIR_MAX_TAPS || T < 1 || C < 1 || bk < 0 || (bk && T % bk)
-        || (bk && nwrap < 1))
+        || (bk && nwrap < 1) || (bk && (stages < 1 || stages > 3)))
         return (int)cudaErrorInvalidValue;
     FrontArgs a = front_args(xr, xi, hr, hi, hr_out, hi_out, yr, yi, taps, gain_in,
                              gain_out, phase_in, freq_in, phase_out, freq_out, T, C,
@@ -653,11 +677,9 @@ extern "C" int xrit_frontend_form(
                              freq_max);
     a.bk = bk;
     a.nwrap = nwrap;
-    if (bk == 0) return bf16 ? launch_frontend<48, false, true>(a, stream)
-                             : launch_frontend<48, false, false>(a, stream);
-    if (48 % bk == 0) return bf16 ? launch_frontend<48, true, true>(a, stream)
-                                  : launch_frontend<48, true, false>(a, stream);
-    if (64 % bk == 0) return bf16 ? launch_frontend<64, true, true>(a, stream)
-                                  : launch_frontend<64, true, false>(a, stream);
+    if (bk == 0) return bf16 ? launch_frontend<48, false, false, true>(a, stream)
+                             : launch_frontend<48, false, false, false>(a, stream);
+    if (48 % bk == 0) return launch_slab<48>(a, stages, bf16 != 0, stream);
+    if (64 % bk == 0) return launch_slab<64>(a, stages, bf16 != 0, stream);
     return (int)cudaErrorInvalidValue;
 }

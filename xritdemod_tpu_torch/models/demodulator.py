@@ -3,7 +3,7 @@
 Counterpart of `xritdemod_tpu/models/demodulator.py`: the batch path
 `block_batch` and its channels-last entry `block_batch_cl`, the single-stream
 path `init_state` / `process` and the SNR tap `snr_estimate`, with either
-clock interpolator (the K-slab block updates are not ported).  One
+clock interpolator and the block-update and bf16 forms.  One
 function consumes a fixed-size `(C, T)` (or, serially, `(T,)`) complex block
 plus a small carried state and returns soft symbols plus the next state.
 
@@ -39,32 +39,34 @@ from xritdemod_tpu_torch.utils.cplx import CF32, from_complex, map_tree
 
 __all__ = ["DemodConfig", "DemodState", "Demodulator", "quantize_symbols", "slot_budget"]
 
-# The reference's `DemodConfig.clock_max_block` at its default (0, meaning
-# 2^17 post-decimation samples): past it the reference's TPU clock runs a
-# block as equal segments and budgets output slots per segment.
+# The default of `DemodConfig.clock_max_block` (0): past 2^17 post-decimation
+# samples the reference's TPU clock runs a block as equal segments and
+# budgets output slots per segment.
 CLOCK_MAX_BLOCK = 1 << 17
 
 
-def _segment_count(td: int) -> int:
+def _segment_count(td: int, cap: int = 0) -> int:
     """The reference's clock segments of a `td`-sample block: the smallest
-    number of equal segments that fit under CLOCK_MAX_BLOCK."""
-    if td <= CLOCK_MAX_BLOCK:
+    number of equal segments that fit under `cap` (0: CLOCK_MAX_BLOCK)."""
+    cap = cap or CLOCK_MAX_BLOCK
+    if td <= cap:
         return 1
-    segs = -(-td // CLOCK_MAX_BLOCK)
+    segs = -(-td // cap)
     while td % segs:
         segs += 1
     return segs
 
 
-def slot_budget(td: int, params: cr_op.ClockRecoveryParams) -> int:
+def slot_budget(td: int, params: cr_op.ClockRecoveryParams, cap: int = 0) -> int:
     """Output slots of a block of `td` post-decimation samples: the
     reference's `num_slots` (`xritdemod_tpu/models/demodulator.py`), so that
-    outputs and `valid` masks have its shapes.  Past CLOCK_MAX_BLOCK the
-    block counts as the smallest number of equal segments that fit under it,
-    each with its own budget; the port still runs one clock launch a block
-    (whose block update restarts its chunks at each segment, as the
-    reference's segmented launches do)."""
-    segs = _segment_count(td)
+    outputs and `valid` masks have its shapes.  Past `cap` (the config's
+    `clock_max_block`; 0: CLOCK_MAX_BLOCK) the block counts as the smallest
+    number of equal segments that fit under it, each with its own budget;
+    the port still runs one clock launch a block (whose block update
+    restarts its chunks at each segment, as the reference's segmented
+    launches do)."""
+    segs = _segment_count(td, cap)
     return segs * cr_op.max_symbols(td // segs, params)
 
 
@@ -126,6 +128,13 @@ class DemodConfig:
     # both to the exact float32 forms on every device, the card included,
     # until a measurement of the forms on the card decides otherwise.
     frontend_precision: str = "auto"
+    # Largest block (post-decimation samples) the clock counts as one
+    # segment; 0 is 2^17.  A longer block is cut into the smallest number of
+    # equal segments that fit under it: `num_slots` is budgeted per segment
+    # (the outputs' and `valid`'s shapes), and the block-update clock
+    # restarts its chunk grid at each segment's start, as the reference's
+    # chained segments do.  The exact clock's symbols do not depend on it.
+    clock_max_block: int = 0
 
     @classmethod
     def lrit(cls, sample_rate: int = 1_250_000, decimation: int = 1, **kw) -> "DemodConfig":
@@ -191,6 +200,8 @@ class Demodulator:
         if config.clock_block_update < 0:
             raise ValueError(
                 f"clock_block_update must be >= 0, got {config.clock_block_update}")
+        if config.clock_max_block < 0:
+            raise ValueError(f"clock_max_block must be >= 0, got {config.clock_max_block}")
         if config.frontend_block_update < -1:
             raise ValueError(
                 f"frontend_block_update must be >= 0 (or -1, auto), "
@@ -239,8 +250,8 @@ class Demodulator:
             gain_mu=config.clock_alpha,
             omega_relative_limit=config.clock_omega_limit,
         )
-        self.num_slots = slot_budget(td, self._clock)
-        self.clock_segments = _segment_count(td)
+        self.num_slots = slot_budget(td, self._clock, config.clock_max_block)
+        self.clock_segments = _segment_count(td, config.clock_max_block)
         self._hpf_taps = t(
             filters.highpass_taps(
                 1.0, config.circuit_sample_rate, float(config.symbol_rate), 300e3

@@ -5,10 +5,14 @@ Replaces `xritdemod_tpu/ops/frontend_pallas.py::demod_frontend_pallas`
 (`block_k=0`, float32), the K-row slab form (`block_k=K`: the AGC as an
 affine prefix over K-row slabs, `ops/agc.agc_slab_gains`, and the Costas
 loop as the frozen-ramp slab update, `ops/costas.costas_slab_steps`), and
-the bf16 matched filter (`precision="bf16"`: each AGC output and tap rounded
-to bfloat16 before its product, products and sums in float32).  One kernel
-template, `frontend_kernel<TR, SLAB, BF16>`; `launches` counts the exact
-form, `launches_form[(block_k, precision)]` each of the others.
+the same with the slab update on one loop only (`block_stages="agc"`: the
+slab AGC and the exact Costas loop; `"costas"`: the exact AGC and the slab
+Costas loop; `"both"`, the default, slabs both), and the bf16 matched filter
+(`precision="bf16"`: each AGC output and tap rounded to bfloat16 before its
+product, products and sums in float32).  One kernel template,
+`frontend_kernel<TR, SLAB_AGC, SLAB_COSTAS, BF16>`; `launches` counts the
+exact form, `launches_form[(block_k, block_stages, precision)]` each of the
+others (`block_stages` "both" where `block_k` is 0).
 The kernel is `csrc/frontend.cu`: one launch, one block per 32 channels,
 whose warps are the stages of a pipeline over shared-memory tiles (loader,
 magnitudes, AGC gain chain, six FIR warps, Costas chain, store), handed on
@@ -49,13 +53,22 @@ from xritdemod_tpu_torch.ops.costas import (
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = ["demod_frontend", "demod_frontend_plain", "trig_mismatches", "launches",
-           "launches_form", "PRECISIONS", "roles", "tile_rows"]
+           "launches_form", "PRECISIONS", "BLOCK_STAGES", "roles", "tile_rows"]
 
 launches = 0          # the exact form
-launches_form: dict = {}   # the slab and bf16 forms, by (block_k, precision)
+launches_form: dict = {}   # the slab and bf16 forms, by (block_k, block_stages, precision)
 
 # The filter's precisions: "highest" is float32; "bf16" rounds its operands.
 PRECISIONS = ("highest", "bf16")
+# The loops a slab form runs in slabs, and the kernel's flags for them
+# (1 the AGC, 2 the Costas loop).
+BLOCK_STAGES = {"both": 3, "agc": 1, "costas": 2}
+
+
+def _check_stages(block_stages: str) -> None:
+    if block_stages not in BLOCK_STAGES:
+        raise ValueError(f"block_stages must be one of {tuple(BLOCK_STAGES)}, "
+                         f"got {block_stages!r}")
 
 
 def tile_rows(block_k: int) -> int:
@@ -68,10 +81,14 @@ def tile_rows(block_k: int) -> int:
                      f"got {block_k}")
 
 
-def roles(block_k: int = 0) -> tuple:
+def roles(block_k: int = 0, block_stages: str = "both") -> tuple:
     """The kernel's warps in order of warp index (`Layout` of
-    csrc/frontend.cu), for the instance of `block_k`; None for a warp that
-    leaves at once.  Names the rows of a stage-clock read."""
+    csrc/frontend.cu), for the instance of `block_k` and `block_stages`;
+    None for a warp that leaves at once.  Names the rows of a stage-clock
+    read.  The Costas warp has warp 3, and so scheduler 3, to itself; the
+    AGC warp sits among the FIR warps, and with both slabs beside the Costas
+    warp (warp 7)."""
+    _check_stages(block_stages)
     fir = tile_rows(block_k) // 8
     out, n = [], 0
     names = [f"fir{k}" for k in range(fir)] + ["loader", "mag", "agc", "store"]
@@ -82,7 +99,7 @@ def roles(block_k: int = 0) -> tuple:
         else:
             out.append(names[n])
             n += 1
-    if block_k:              # the slab forms' AGC warp sits beside the Costas warp
+    if block_k and block_stages == "both":
         out = [None if r == "agc" else r for r in out]
         out[7] = "agc"
     return tuple(out)
@@ -104,6 +121,7 @@ def demod_frontend_plain(
     x: CF32, gain, rrc_hist: CF32, costas_state: CostasState,
     agc: AgcParams, taps: torch.Tensor, costas: CostasParams,
     stages: dict | None = None, block_k: int = 0, precision: str = "highest",
+    block_stages: str = "both",
 ):
     """Plain PyTorch version of `demod_frontend` (same contract).
 
@@ -113,11 +131,12 @@ def demod_frontend_plain(
     what the standalone AGC and Costas stages (`ops/stream_cuda.py`) give
     and take — and `seconds`, the wall time of each stage.
     """
-    _check_form(block_k, precision)
+    _check_form(block_k, precision, block_stages)
     T = x.re.shape[0]
     nh = taps.shape[0] - 1
     clock = _StageClock(x.re.device) if stages is not None else None
-    if block_k:
+    slab = BLOCK_STAGES[block_stages] if block_k else 0
+    if slab & 1:
         gains, new_gain = agc_slab_gains(x.abs(), gain, agc, block_k)
     else:
         gains, new_gain = agc_gains(x.abs(), gain, agc)
@@ -135,7 +154,7 @@ def demod_frontend_plain(
         fi = _fir_cl(ei, taps, T)
     if clock:
         clock.mark("fir")
-    if block_k:
+    if slab & 2:
         yr, yi, new_costas = costas_slab_steps(fr, fi, costas_state, costas, block_k)
     else:
         yr, yi, new_costas = costas_steps(fr, fi, costas_state, costas)
@@ -163,11 +182,12 @@ class _StageClock:
         self.seconds[name], self._t = now - self._t, now
 
 
-def _check_form(block_k: int, precision: str) -> None:
+def _check_form(block_k: int, precision: str, block_stages: str) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if block_k < 0:
         raise ValueError(f"block_k must be >= 0, got {block_k}")
+    _check_stages(block_stages)
 
 
 def _lib(form: bool):
@@ -176,7 +196,7 @@ def _lib(form: bool):
     if not fn.argtypes:
         fn.argtypes = (
             [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
-            + [ctypes.c_float] * 7 + [ctypes.c_int] * (3 if form else 0) + [ctypes.c_void_p]
+            + [ctypes.c_float] * 7 + [ctypes.c_int] * (4 if form else 0) + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
@@ -209,7 +229,7 @@ def trig_mismatches(lo: float, hi: float, n: int, device) -> int:
 def demod_frontend(
     x: CF32, gain, rrc_hist: CF32, costas_state: CostasState,
     agc: AgcParams, taps: torch.Tensor, costas: CostasParams,
-    block_k: int = 0, precision: str = "highest",
+    block_k: int = 0, precision: str = "highest", block_stages: str = "both",
 ):
     """AGC -> RRC -> Costas over a channels-last `(T, C)` block.
 
@@ -223,14 +243,19 @@ def demod_frontend(
         multiple of K).
       precision: "highest" (float32) or "bf16" (the filter's operands
         rounded to bfloat16).
+      block_stages: with `block_k` K > 0, the loops that take the slab
+        update: "both", "agc" (the Costas loop exact) or "costas" (the AGC
+        exact).  Any other string is refused (the JAX kernel runs both
+        loops exactly for one it does not know).
 
     Returns `(y, gain', rrc_hist', costas_state')` with `y` `(T, C)` CF32.
     """
     global launches
-    _check_form(block_k, precision)
+    _check_form(block_k, precision, block_stages)
     if not x.re.is_cuda:
         return demod_frontend_plain(x, gain, rrc_hist, costas_state, agc, taps, costas,
-                                    block_k=block_k, precision=precision)
+                                    block_k=block_k, precision=precision,
+                                    block_stages=block_stages)
     T, C = x.re.shape
     form = bool(block_k) or precision == "bf16"
     if block_k:
@@ -262,7 +287,7 @@ def demod_frontend(
     phase_out = torch.empty_like(gain)
     freq_out = torch.empty_like(gain)
     extra = (block_k, slab_wraps(costas, block_k) if block_k else 0,
-             int(precision == "bf16")) if form else ()
+             BLOCK_STAGES[block_stages], int(precision == "bf16")) if form else ()
     with _build.launch_on(xr) as stream:
         err = _lib(form)(
             xr.data_ptr(), xi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
@@ -278,7 +303,7 @@ def demod_frontend(
         )
     _build.check(err, "xrit_frontend_form" if form else "xrit_frontend")
     if form:
-        key = (block_k, precision)
+        key = (block_k, block_stages if block_k else "both", precision)
         launches_form[key] = launches_form.get(key, 0) + 1
     else:
         launches += 1

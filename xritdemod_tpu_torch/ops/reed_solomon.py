@@ -6,9 +6,11 @@ Massey (a fixed 32 iterations with masked updates), Chien search and Forney
 evaluation.  GF(2^8) arithmetic is integer log/exp table lookups by tensor
 indexing — the JAX package's GF(2) bit-matrix matmuls and one-hot row
 compaction exist because gathers serialise on its device, and are not
-carried over.  Only codewords with a non-zero syndrome go through the
-correction stages (one host read of the syndrome flags); the results are
-identical to correcting every row.
+carried over.  The correction stages run on a batch's errored codewords
+only where the batch has some: the reference's sparse path (`sparse_max`),
+rows gathered and scattered by index, or every row when more err; one
+count read to the host chooses.  The results are identical to correcting
+every row.
 
 Code parameters (CCSDS 131.0-B): field polynomial x^8+x^7+x^2+x+1 (0x187),
 generator roots alpha^(11*112)..alpha^(11*143) (fcr=112, prim=11).  Working
@@ -22,6 +24,7 @@ and the corrected output including parity.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -29,6 +32,7 @@ import torch
 from xritdemod_tpu_torch import constants as C
 
 __all__ = [
+    "branches",
     "deinterleave",
     "interleave",
     "rs_decode",
@@ -192,13 +196,28 @@ def interleave(blocks: torch.Tensor) -> torch.Tensor:
 # Rows per syndrome sweep: bounds the (rows, 32, 255) int32 temporaries.
 _SYN_CHUNK = 2048
 
+# Calls of `rs_decode` by the branch they took: "clean" (no codeword erred),
+# "sparse" (at most Kmax erred: Kmax rows corrected), "full" (more than Kmax
+# erred: every row corrected) and "rows" (`sparse_max` 0 or >= B: the errored
+# rows, found by one variable-length read).
+branches = {"clean": 0, "sparse": 0, "full": 0, "rows": 0}
 
-def rs_decode(received: torch.Tensor):
+
+def rs_decode(received: torch.Tensor, sparse_max: int | None = None):
     """Decode `(B, 255)` dual-basis codewords.
 
     Returns `(corrected, nerrors)`: corrected `(B, 255)` dual-basis uint8
     bytes (parity included) and `(B,)` int32 corrected-symbol counts, -1 on
     decode failure (uncorrectable; the row is returned as received).
+
+    `sparse_max` Kmax (None: `_default_sparse_max(B)`, which reads
+    XRIT_RS_SPARSE at the call): with 0 < Kmax < B one count of errored rows
+    is read to the host; none erred, the batch is returned as it came; at
+    most Kmax, the first Kmax rows of a stable sort that puts the errored
+    ones first (the reference's order) are corrected, gathered and scattered
+    back by index, at shapes that do not depend on the data; more, every row
+    is corrected.  Kmax 0 (or >= B) corrects the errored rows alone, found
+    by one variable-length read.  Every branch gives the same results.
     """
     tb = _tables(received.device)
     r = tb["tal1"][received.to(torch.int32)]              # conventional basis
@@ -206,13 +225,45 @@ def rs_decode(received: torch.Tensor):
     S = _syndromes(r, tb)                                 # (B, 32)
     has_err = (S != 0).any(-1)
     nerr = torch.zeros((B,), dtype=torch.int32, device=r.device)
+    if sparse_max is None:
+        sparse_max = _default_sparse_max(B)
 
-    rows = torch.nonzero(has_err)[:, 0]     # host read: how many rows to fix
-    if rows.numel():
-        fixed, n = _rs_correct(S[rows], r[rows], tb)
-        r = r.index_copy(0, rows, fixed)
-        nerr = nerr.index_copy(0, rows, n)
+    if not (0 < sparse_max < B):
+        rows = torch.nonzero(has_err)[:, 0]     # host read: which rows to fix
+        branches["rows"] += 1
+        if rows.numel():
+            fixed, n = _rs_correct(S[rows], r[rows], tb)
+            r = r.index_copy(0, rows, fixed)
+            nerr = nerr.index_copy(0, rows, n)
+        return tb["tal"][r].to(torch.uint8), nerr
+
+    nerrored = int(has_err.sum())               # host read: which branch
+    if nerrored == 0:
+        branches["clean"] += 1
+        return tb["tal"][r].to(torch.uint8), nerr
+    if nerrored <= sparse_max:
+        branches["sparse"] += 1
+        sel = torch.argsort((~has_err).to(torch.uint8), stable=True)[:sparse_max]
+        he = has_err[sel]
+        fixed, n = _rs_correct(S[sel], r[sel], tb)
+        # A clean row among the Kmax (padding) is no failure: kept as it came.
+        r = r.index_copy(0, sel, torch.where(he[:, None], fixed, r[sel]))
+        nerr = nerr.index_copy(0, sel, torch.where(he, n, 0))
+    else:
+        branches["full"] += 1
+        fixed, n = _rs_correct(S, r, tb)
+        r = torch.where(has_err[:, None], fixed, r)
+        nerr = torch.where(has_err, n, 0)
     return tb["tal"][r].to(torch.uint8), nerr
+
+
+def _default_sparse_max(B: int) -> int:
+    """The reference's automatic Kmax: ~B/16 rounded up to a multiple of 128,
+    at most B/2, for batches of 1024 rows or more; 0 below, or when the
+    environment variable XRIT_RS_SPARSE is "0" (read at each call)."""
+    if B < 1024 or os.environ.get("XRIT_RS_SPARSE", "1") == "0":
+        return 0
+    return min(B // 2, -(-max(128, B // 16) // 128) * 128)
 
 
 def _syndromes(r, tb):

@@ -49,11 +49,15 @@ __all__ = [
 
 BACKENDS = ("nccl", "gloo")
 
+# The cards named by `initialize(local_device_ids=...)`, None until then.
+_local_device_ids: list | None = None
+
 
 def initialize(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids=None,
     backend: str | None = None,
     init_method: str | None = None,
 ) -> bool:
@@ -63,8 +67,18 @@ def initialize(
     `MASTER_PORT`, `WORLD_SIZE` and `RANK`.  `init_method` (for example
     `file:///path`, a store without ports) replaces the coordinator's
     `tcp://host:port`.  Without either this is a no-op that returns False.
+    `local_device_ids` name the CUDA cards this process uses (ids that do
+    not exist are refused): when a group starts, the first becomes the
+    current device, and `make_host_mesh` takes them as its default entries.
     Returns True when a group of more than one process is active.
     """
+    global _local_device_ids
+    if local_device_ids is not None:
+        ids = [int(i) for i in local_device_ids]
+        count = torch.cuda.device_count()
+        if not ids or any(not 0 <= i < count for i in ids):
+            raise ValueError(f"local_device_ids {ids} name no card of the {count} visible")
+        _local_device_ids = ids
     if dist.is_initialized():
         return dist.get_world_size() > 1
     env = os.environ
@@ -85,6 +99,8 @@ def initialize(
         )
     if num_processes is None or process_id is None:
         raise ValueError("initialize needs num_processes and process_id (or WORLD_SIZE, RANK)")
+    if local_device_ids is not None:
+        torch.cuda.set_device(_local_device_ids[0])
     dist.init_process_group(backend, init_method=init_method, world_size=num_processes,
                             rank=process_id)
     return dist.get_world_size() > 1
@@ -114,9 +130,12 @@ class HostMesh:
 def make_host_mesh(devices=None, axes: tuple = ("host", "chip")) -> HostMesh:
     """`(hosts, local devices)` mesh over every process of the group.
 
-    `devices` are this process's entries (default: every visible CUDA
-    device; entries may repeat).  Every process must bring as many.
+    `devices` are this process's entries (default: the cards `initialize`
+    was given, else every visible CUDA device; entries may repeat).  Every
+    process must bring as many.
     """
+    if devices is None and _local_device_ids is not None:
+        devices = [torch.device("cuda", i) for i in _local_device_ids]
     local = make_channel_mesh(devices).devices
     if not (dist.is_initialized() and dist.get_world_size() > 1):
         return HostMesh((local,), tuple(axes), 0)

@@ -57,6 +57,7 @@ class DemodulatorApp:
         decoder_port: int = C.DEFAULT_DECODER_PORT,
         block_len: int = 1 << 17,
         send_constellation: bool = False,
+        realtime: bool = False,
         batch_pad: int = 0,
         device="cuda",
     ):
@@ -86,6 +87,7 @@ class DemodulatorApp:
         self.sender = SymbolSender(decoder_address, decoder_port)
         self.diag = DiagManager() if send_constellation else None
         self.block_len = block_len
+        self.realtime = realtime
         self._running = False
         self.symbols_out = 0
         self.blocks = 0

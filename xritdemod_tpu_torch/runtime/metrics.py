@@ -70,19 +70,24 @@ class PipelineMetrics:
         )
 
 
+TRACE_FILE = "xrit_trace.json"
+
+
 @contextlib.contextmanager
-def trace(path: str | None = None):
+def trace(log_dir: str | None = None):
     """`torch.profiler` trace of the block, CPU activity and, when a CUDA
-    device is present, its kernels; written as a Chrome trace to `path`
-    (default `xrit_trace.json` in the temporary directory).  Yields the
-    path."""
+    device is present, its kernels; written as a Chrome trace,
+    `xrit_trace.json`, inside the directory `log_dir` (default
+    `xrit_trace` in the temporary directory; made if missing).  Yields the
+    directory, as the reference's profiler context does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    path = path or os.path.join(tempfile.gettempdir(), "xrit_trace.json")
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "xrit_trace")
+    os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        yield path
-    prof.export_chrome_trace(path)
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))

@@ -39,8 +39,8 @@ from xritdemod_tpu_torch.tools.timing import (
     FRONTEND_FORMS, card, noise_block, require_device, timed,
 )
 
-# (block_k, precision) of each of K1's forms.
-FORMS = {"frontend": (0, "highest"), **FRONTEND_FORMS}
+# (block_k, block_stages, precision) of each of K1's forms.
+FORMS = {"frontend": (0, "both", "highest"), **FRONTEND_FORMS}
 
 
 def bench(which: str = "both", C: int = 512, T: int = 1 << 17, iters: int = 6,
@@ -68,10 +68,10 @@ def bench(which: str = "both", C: int = 512, T: int = 1 << 17, iters: int = 6,
                   file=log, flush=True)
 
     if which in ("frontend", "both"):
-        for name, (bk, prec) in FORMS.items():
-            run(name, lambda bk=bk, prec=prec: demod_frontend(
+        for name, (bk, stages, prec) in FORMS.items():
+            run(name, lambda bk=bk, stages=stages, prec=prec: demod_frontend(
                 xT, st.agc_gain, st.rrc_hist, st.costas, dm._agc, dm._rrc_taps, dm._costas,
-                block_k=bk, precision=prec), lambda o: o[0].re)
+                block_k=bk, precision=prec, block_stages=stages), lambda o: o[0].re)
     if which in ("clock", "both"):
         run("clock_cl", lambda: clock_recovery_block_kernel_batch_cl(
             xT, st.clock, dm._clock, dm.num_slots), lambda o: o[0].re)

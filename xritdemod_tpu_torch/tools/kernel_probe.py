@@ -1,11 +1,13 @@
 """Probe: what sets the time of the hand-written kernels: the front end
-(K1), the clock (K2, its mmse instance `clock` and its sinc instance
-`clock_sinc`), the Viterbi decoder (K3), the standalone AGC (K5) and Costas
-loop (K6).
+(K1; also its slab forms on one loop, `frontend_bk8_agc` and
+`frontend_bk8_costas`, in other warp layouts), the clock (K2, its mmse
+instance `clock` and its sinc instance `clock_sinc`), the Viterbi decoder
+(K3), the standalone AGC (K5) and Costas loop (K6).
 
     python -m xritdemod_tpu_torch.tools.kernel_probe            # needs a GPU and nvcc
     python -m xritdemod_tpu_torch.tools.kernel_probe agc_block costas_block
     python -m xritdemod_tpu_torch.tools.kernel_probe clock clock_sinc [--rounds N]
+    python -m xritdemod_tpu_torch.tools.kernel_probe frontend_bk8_agc frontend_bk8_costas
     python -m xritdemod_tpu_torch.tools.kernel_probe viterbi [--rounds N] [--baseline OTHER/viterbi.cu]
 
 Times the kernels named on the command line (all by default) at the
@@ -120,6 +122,32 @@ VARIANTS = {
 
 VARIANTS["clock_sinc"] = {"as shipped": ()}
 
+# K1 with the slab on one loop (block_k 8) where its warps sit: as shipped
+# the Costas warp has scheduler 3 to itself and the AGC warp sits among the
+# FIR warps.
+_AGC_WARP = ("AGC = SLAB_AGC && SLAB_COSTAS ? IDLE7\n"
+             "                                                       : off_costas_scheduler"
+             "(FIR_WARPS + 2),")
+_COSTAS_ROLE = "    else if (role == COSTAS) costas_chain<TR, SLAB_COSTAS>(a, s, g);"
+VARIANTS["frontend_bk8_agc"] = {
+    "as shipped": (),
+    "AGC slab warp beside the Costas chain (warp 7, scheduler 3)":
+        ((_AGC_WARP, "AGC = SLAB_AGC ? IDLE7 : off_costas_scheduler(FIR_WARPS + 2),"),),
+}
+VARIANTS["frontend_bk8_costas"] = {
+    "as shipped": (),
+    "AGC chain beside the Costas slab walk (warp 7, scheduler 3)":
+        ((_AGC_WARP, "AGC = SLAB_AGC || SLAB_COSTAS ? IDLE7 "
+                     ": off_costas_scheduler(FIR_WARPS + 2),"),),
+    "AGC chain alone on scheduler 3, the Costas slab walk among the FIR warps":
+        ((_AGC_WARP, "AGC = SLAB_COSTAS && !SLAB_AGC ? COSTAS : SLAB_AGC && SLAB_COSTAS ? "
+                     "IDLE7 : off_costas_scheduler(FIR_WARPS + 2),"),
+         # The AGC warp's usual place, off scheduler 3, is the one after MAG.
+         (_COSTAS_ROLE, "    else if (role == (SLAB_COSTAS && !SLAB_AGC ? "
+                        "L::MAG + 1 : (int)COSTAS))\n"
+                        "        costas_chain<TR, SLAB_COSTAS>(a, s, g);")),
+}
+
 # The many-windows instance of the shipped rule and the other candidate for
 # it, built in its slot of the entry's dispatch (LPW 4 and 8 store decisions
 # alike, so its bits are right).
@@ -139,7 +167,8 @@ VARIANTS["viterbi"] = {
 }
 
 # The library (`csrc/<name>.cu`) that holds each kernel.
-LIBRARY = {"frontend": "frontend", "clock": "clock", "clock_sinc": "clock",
+LIBRARY = {"frontend": "frontend", "frontend_bk8_agc": "frontend",
+           "frontend_bk8_costas": "frontend", "clock": "clock", "clock_sinc": "clock",
            "agc_block": "stream", "costas_block": "stream", "viterbi": "viterbi"}
 
 # Frames per `CaduDecoder` call whose Viterbi windows the sweep times.
@@ -277,14 +306,17 @@ def main() -> None:
     x = CF32(0.5 * torch.sign(torch.sin(1.4771 * n + torch.arange(CHANNELS, device=dev)))
              + noise(), noise())
     st = demod.init_state_batch(CHANNELS)
-    front = lambda: frontend_cuda.demod_frontend(
-        x, st.agc_gain, st.rrc_hist, st.costas, demod._agc, demod._rrc_taps, demod._costas)
-    y = front()[0]
+    front = lambda **form: lambda: frontend_cuda.demod_frontend(
+        x, st.agc_gain, st.rrc_hist, st.costas, demod._agc, demod._rrc_taps, demod._costas,
+        **form)
+    y = front()()[0]
     clock = lambda interp: lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(
         y, st.clock, demod._clock, demod.num_slots, interp)
     xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())      # (C, T)
     launches = dict(
-        frontend=front, clock=clock("mmse"), clock_sinc=clock("sinc"),
+        frontend=front(), clock=clock("mmse"), clock_sinc=clock("sinc"),
+        frontend_bk8_agc=front(block_k=8, block_stages="agc"),
+        frontend_bk8_costas=front(block_k=8, block_stages="costas"),
         agc_block=lambda: stream_cuda.agc_block_kernel(xc, st.agc_gain, demod._agc),
         costas_block=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas),
     )

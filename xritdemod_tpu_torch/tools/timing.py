@@ -110,9 +110,13 @@ def device_busy_ms(fn) -> float:
     return device_kernels(fn)[0]
 
 
-# The front end's forms by name: (block_k, precision).
-FRONTEND_FORMS = {"frontend_bk8_bf16": (8, "bf16"), "frontend_bk8": (8, "highest"),
-                  "frontend_bf16": (0, "bf16")}
+# The front end's forms by name: (block_k, block_stages, precision).
+FRONTEND_FORMS = {"frontend_bk8_bf16": (8, "both", "bf16"), "frontend_bk8": (8, "both", "highest"),
+                  "frontend_bf16": (0, "both", "bf16"),
+                  "frontend_bk8_agc": (8, "agc", "highest"),
+                  "frontend_bk8_costas": (8, "costas", "highest"),
+                  "frontend_bk8_agc_bf16": (8, "agc", "bf16"),
+                  "frontend_bk8_costas_bf16": (8, "costas", "bf16")}
 
 
 def launch_counts() -> dict:
