@@ -11,8 +11,10 @@ kernel against its plain PyTorch version on the card at the shapes its path
 gives it (the front end and the clock, both of its interpolators, over two
 chained blocks, each version carrying its own state) and at small ragged
 shapes (also: the clock where channels stand further apart than its
-shared-memory ring, and the Costas step's sine and cosine against the CUDA
-library's; the plain recurrences run as replayed CUDA graphs, `ops/scan.py`,
+shared-memory ring, the sinc clock from edge states of mu and at one
+channel, its branch-free taps against the exact ones at every float mu in
+[0, 1], and the Costas step's sine and cosine against the CUDA library's;
+the plain recurrences run as replayed CUDA graphs, `ops/scan.py`,
 themselves held bit-equal to eager loops first; the banded-matmul FIR at the
 split path's shape against cuDNN and a float64 sum), then drives the paths at
 the shipped LRIT operating point,
@@ -353,7 +355,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
     ks0 = clock_cuda.clock_recovery_block_kernel_batch_cl(*ck0, "sinc")
     ps0 = clock_cuda.clock_recovery_block_plain_cl(*ck0, "sinc")
     serrs0 = clock_errs(ks0, ps0, f"{where}: clock (sinc), first block")
-    if not max(serrs0) <= 1e-4:
+    if not max(serrs0) <= 0.0:
         fail(f"{where}: clock (sinc), first block, disagrees with its plain version: {serrs0}")
     del xT0, ck0
     k_state, p_state = k0[1:], p0[1:]
@@ -443,7 +445,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
     errs = errs + cerrs0
     ms = time_ms(lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*ck_args), 3)
     if PROFILE:
-        stage_clocks("clock", clock_cuda.ROLES,
+        stage_clocks("clock", clock_cuda.ROLES["clock"],
                      lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*ck_args))
     nsym = int(kv.sum())
     S = demod.num_slots
@@ -468,13 +470,13 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
     sp, plain_ms = once_ms(lambda: clock_cuda.clock_recovery_block_plain_cl(
         yT, ps_state, demod._clock, demod.num_slots, "sinc"))
     errs = clock_errs(sk, sp, f"{where}: clock (sinc), second block")
-    if not max(errs) <= 1e-4:
+    if not max(errs) <= 0.0:
         fail(f"{where}: clock (sinc), second block, disagrees with its plain version: {errs}")
     errs = errs + serrs0
     sargs = (yT, ks_state, demod._clock, demod.num_slots, "sinc")
     ms = time_ms(lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*sargs), 3)
     if PROFILE:
-        stage_clocks("clock", clock_cuda.ROLES,
+        stage_clocks("clock", clock_cuda.ROLES["clock_sinc"],
                      lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(*sargs),
                      "clock_sinc")
     nsym_s = int(sk[1].sum())
@@ -483,7 +485,7 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
         name="clock_sinc", route="cuda", source="xritdemod_tpu_torch/csrc/clock.cu",
         replaces="xritdemod_tpu/ops/clock_pallas.py:539",
         form="interp_mode='sinc' (clock_pallas.py:352-372)", max_abs_err=max(errs),
-        tolerance="atol 1e-4, equal symbol counts and positions, two chained blocks", ms=ms,
+        tolerance="exact, equal symbol counts and positions, two chained blocks", ms=ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None, symbols=nsym_s,
     ))
     del sk, sp, sargs
@@ -614,12 +616,18 @@ def ragged_signal(T: int, C: int, rnd) -> CF32:
     return CF32(carrier + rnd(T, C, scale=0.05), rnd(T, C, scale=0.05))
 
 
+# K2's instances as (interpolator, chunk): the exact mmse and sinc forms and
+# the sinc block update at the on-chip configuration's K.
+SLOW_CLOCKS = {"clock": ("mmse", 0), "clock_sinc": ("sinc", 0), "clock_bu_sinc": ("sinc", 16)}
+
+
 def check_slow_clock(demod: Demodulator, rnd) -> dict:
     """The clock kernel where channels of one group stand further apart than
     its shared-memory ring spans (every second channel starts 700 samples
-    ahead; omega at both ends of its range): the lanes ahead must take their
-    samples from device memory, and the result must still be the plain
-    version's."""
+    ahead; omega at both ends of its range), for each instance of
+    SLOW_CLOCKS: the lanes ahead must take their samples from device memory
+    (counted), and the result must still be the plain version's (the sinc
+    instances' bit for bit)."""
     C, T = 40, 4000
     st = demod.init_state_batch(C).clock
     ii = st.ii.clone()
@@ -631,15 +639,65 @@ def check_slow_clock(demod: Demodulator, rnd) -> dict:
     st = st._replace(ii=ii, omega=omega)
     y = ragged_signal(T, C, rnd)
     S = T // 4 + 20
-    clock_cuda.out_of_ring_symbols(DEV, reset=True)
-    k = clock_cuda.clock_recovery_block_kernel_batch_cl(y, st, demod._clock, S)
-    taken = clock_cuda.out_of_ring_symbols(DEV, reset=True)
-    p = clock_cuda.clock_recovery_block_plain_cl(y, st, demod._clock, S)
-    err = max(clock_errs(k, p, "clock outside its ring"))
-    if taken <= 0:
-        fail("clock outside its ring: the kernel never read a symbol from device memory")
-    return dict(shape=[C, T], symbols=int(k[1].sum()), symbols_from_device_memory=taken,
-                max_abs_err=err)
+    out = {}
+    for name, (interp, K) in SLOW_CLOCKS.items():
+        clock_cuda.out_of_ring_symbols(DEV, reset=True)
+        k = clock_cuda.clock_recovery_block_kernel_batch_cl(y, st, demod._clock, S, interp, K)
+        taken = clock_cuda.out_of_ring_symbols(DEV, reset=True)
+        p = clock_cuda.clock_recovery_block_plain_cl(y, st, demod._clock, S, interp, K)
+        err = max(clock_errs(k, p, f"{name} outside its ring"))
+        if taken <= 0:
+            fail(f"{name} outside its ring: the kernel never read a symbol from device memory")
+        if interp == "sinc" and err != 0.0:
+            fail(f"{name} outside its ring differs from its plain version: {err}")
+        out[name] = dict(symbols=int(k[1].sum()), symbols_from_device_memory=taken,
+                         max_abs_err=err)
+    return dict(shape=[C, T], **out)
+
+
+# States a sinc clock may enter with: mu at 0, at the largest float below 1
+# and at 1.0 (u = 0 on taps 3 and 4), outside [0, 1] (one step takes it
+# back), and past the sine's large-argument threshold (pi mu > 105615).
+SINC_EDGE_MU = (0.0, 1.0 - 2.0 ** -24, 1.0, -0.25, 1.5, 33619.25)
+
+
+def check_sinc_clock(demod: Demodulator, rnd) -> dict:
+    """K2's sinc instances (exact and block update at K = 16) against their
+    plain versions bit for bit: from states whose mu is each of
+    SINC_EDGE_MU (C = 6, T = 4000), and at one channel over two chained
+    full-size blocks; then the branch-free taps of their unchecked steps
+    against the exact forms at every float mu in [0, 1] (bit-equal at every
+    mu an unchecked step can meet: 0 and [2^-23, 1])."""
+    out = {}
+    cases = (("mu_edges", len(SINC_EDGE_MU), 4000, torch.tensor(SINC_EDGE_MU, device=DEV)),
+             ("one_channel", 1, BLOCK_LEN, None))
+    for what, C, T, mu in cases:
+        st = demod.init_state_batch(C).clock
+        if mu is not None:
+            st = st._replace(mu=mu.to(torch.float32))
+        S = demod.num_slots if T == BLOCK_LEN else T // 4 + 20
+        row = {}
+        for name, K in (("clock_sinc", 0), ("clock_bu_sinc", 16)):
+            kst = pst = st
+            errs, nsym = [], 0
+            for _ in range(2):
+                y = ragged_signal(T, C, rnd)
+                k = clock_cuda.clock_recovery_block_kernel_batch_cl(y, kst, demod._clock, S,
+                                                                    "sinc", K)
+                p = clock_cuda.clock_recovery_block_plain_cl(y, pst, demod._clock, S, "sinc", K)
+                errs += clock_errs(k, p, f"{name}, {what}")
+                nsym += int(k[1].sum())
+                kst, pst = k[2], p[2]
+            if max(errs) != 0.0:
+                fail(f"{name}, {what}: differs from its plain version: {max(errs)}")
+            row[name] = dict(max_abs_err=max(errs), symbols=nsym)
+        out[what] = dict(shape=[C, T], **row)
+    out["mu_edges"]["mu"] = list(SINC_EDGE_MU)
+    taps = clock_cuda.sinc_tap_mismatches(DEV)
+    if taps["trig"] or taps["taps_unchecked"]:
+        fail(f"the sinc clock's branch-free taps differ from the exact ones: {taps}")
+    out["branch_free_taps"] = taps
+    return out
 
 
 def check_trig() -> dict:
@@ -688,7 +746,10 @@ def check_ragged(rx: FusedReceiver) -> dict:
             out["clock_sinc"] = max(out["clock_sinc"],
                                     *clock_errs(kc, pc, f"ragged clock (sinc) {C} x {T}"))
             ksc, psc = kc[2], pc[2]
+    if out["clock_sinc"] != 0.0:
+        fail(f"ragged clock (sinc) differs from its plain version: {out['clock_sinc']}")
     out["clock_outside_its_ring"] = check_slow_clock(demod, rnd)
+    out["sinc_clock"] = check_sinc_clock(demod, rnd)
     out["sincos"] = check_trig()
 
     Cr, L, Sr, E = 5, 300, 77, 64
@@ -741,8 +802,10 @@ def check_ragged(rx: FusedReceiver) -> dict:
     out["roll"] = 0.0
 
     out["viterbi"] = check_ragged_viterbi(rnd)
-    worst = max(v["max_abs_err"] if k in ("clock_outside_its_ring", "viterbi") else v
-                for k, v in out.items() if k != "sincos")
+    slow = out["clock_outside_its_ring"]
+    worst = max([v["max_abs_err"] if k == "viterbi" else v for k, v in out.items()
+                 if k not in ("sincos", "sinc_clock", "clock_outside_its_ring")]
+                + [slow[name]["max_abs_err"] for name in SLOW_CLOCKS])
     if not worst <= 1e-4:
         fail(f"ragged shapes: a kernel disagrees with its plain version: {out}")
     return out
@@ -1638,6 +1701,9 @@ def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> 
             if b == 1:
                 args = (y, kc, demod._clock, S, interp, chunk)
                 ms = time_ms(lambda: entry(*args), 3)
+                if PROFILE:
+                    stage_clocks("clock", clock_cuda.ROLES[name], lambda: entry(*args),
+                                 f"{name} {form}")
                 e = entry(y, kc, demod._clock, S, interp, 1)
                 one = entry(y, kc, demod._clock, S, interp)
                 if not (torch.equal(e[0].re, one[0].re) and torch.equal(e[1], one[1])
@@ -3127,10 +3193,12 @@ def main() -> None:
     for name in _build.KERNELS:
         _build.load(name)
     k3 = kernel_frames(built["log"], "_Z14viterbi_kernel")
-    # K2 by instance (0 mmse, 1 sinc, 2 and 3 their block updates).  The
-    # sinc instances' stack frame is `sinf`'s large-argument path (a
-    # never-taken branch): no spill.
+    # K2 by instance: `clock_kernel` 0 mmse and 2 its block update,
+    # `clock_sinc_kernel` 1 sinc and 3 its block update.  The sinc
+    # instances' stack frame is the large-argument path of `sinf` and
+    # `sincos_exact` in their checked steps: no spill.
     k2 = kernel_frames(built["log"], "_Z12clock_kernel")
+    k2s = kernel_frames(built["log"], "_Z17clock_sinc_kernel")
     # The host library of the apps' sample ring, built here, in this
     # process: the apps line reports which ring they got, and why.
     t_native = time.perf_counter()
@@ -3138,15 +3206,16 @@ def main() -> None:
     say("build", seconds=built["seconds"], built=built["built"],
         directory=str(_build.build_dir()), ptxas=[
             ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln],
-        viterbi_instances=k3, clock_instances=k2,
+        viterbi_instances=k3, clock_instances=k2, clock_sinc_instances=k2s,
         native_library=dict(loaded=native_ok, path=str(native.library_path()),
                             error=native.last_error(),
                             seconds=time.perf_counter() - t_native))
     if len(k3) != len(viterbi_cuda.LANES) or any(any(v) for v in k3.values()):
         fail(f"viterbi: every instance must build without stack frame or spill: {k3}")
-    if sorted(k2) != ["0", "1", "2", "3"] or any(v[1] or v[2] for v in k2.values()) \
-            or k2["0"][0] or k2["2"][0]:
-        fail(f"clock: every instance must build without spill, mmse without stack frame: {k2}")
+    if sorted(k2) != ["0", "2"] or sorted(k2s) != ["1", "3"] \
+            or any(v[1] or v[2] for v in [*k2.values(), *k2s.values()]) or k2["0"][0] or k2["2"][0]:
+        fail(f"clock: every instance must build without spill, mmse without stack frame: "
+             f"{k2}, {k2s}")
 
     say("fir", card=smi, **check_fir())
     say("fir_matmul", card=smi, **check_fir_matmul())

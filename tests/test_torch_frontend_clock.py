@@ -355,4 +355,4 @@ class TestWrappers:
         assert clock_cuda.out_of_ring_symbols("cpu") == 0
         # One name per warp of each kernel, for the stage-clock read.
         assert len(frontend_cuda.ROLES) == 13 and frontend_cuda.ROLES[3] == "costas"
-        assert clock_cuda.ROLES == ("chain", "loader", "store")
+        assert clock_cuda.ROLES["clock"] == ("chain", "loader", "store")

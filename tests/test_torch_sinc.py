@@ -147,3 +147,44 @@ class TestSincClock:
         np.testing.assert_array_equal(a[1].numpy(), b[1].numpy())
         np.testing.assert_allclose(a[0].re.numpy(), b[0].re.numpy(), atol=2e-2)
         assert not torch.equal(a[0].re, b[0].re)
+
+
+# The mu values the sinc kernel's range argument rests on: a step leaves mu in
+# [0, 1] (1.0 only by rounding a tiny negative fraction), where pi mu and
+# pi mu / 4 lie far below the sine's large-argument threshold.  0 and 1.0 put
+# u = 0 on taps 3 and 4.
+MU_EDGES = (0.0, 2.0 ** -24, 0.5, 1.0 - 2.0 ** -24, 1.0)
+# The XLA sinc form, compiled once for every edge value (same shapes).
+_jax_clock = jax.jit(jcr.clock_recovery_block_batch, static_argnums=(2, 3),
+                     static_argnames=("interp",))
+
+
+@pytest.mark.parametrize("mu", MU_EDGES)
+def test_sinc_forms_at_the_mu_edges(mu):
+    """At each edge value: `_sinc_rows` against the reference's
+    `_interp_taps` to 2e-7, the row summing to 1 within 1e-6 (at mu = 0,
+    where sin(pi mu) is 0, the unit row; at 1.0 the float pi leaves the
+    other taps ~1e-8); and one block of the plain sinc clock, C = 2, T = 512,
+    from a state whose mu is that value, against the XLA sinc form: equal
+    counts and positions, symbols, mu and history at atol 1e-4, omega at
+    1e-5 (the tolerances of the tests above)."""
+    got = tcr._sinc_rows(torch.tensor([mu], dtype=torch.float32)).numpy()[0]
+    want = np.asarray(jcr._interp_taps(jnp.float32(mu)))
+    np.testing.assert_allclose(got, want, atol=2e-7)
+    np.testing.assert_allclose(got.sum(), 1.0, atol=1e-6)
+    if mu == 0.0:
+        np.testing.assert_array_equal(got, np.eye(8, dtype=np.float32)[3])
+
+    cfg = DemodConfig.lrit(clock_interp="sinc")
+    C, T = 2, 512
+    x = _shaped(cfg, C, T, seed=90)
+    jd = JDemodulator(JDemodConfig.lrit(clock_interp="sinc"), T)
+    td = Demodulator(cfg, T, device="cpu")
+    jst, tst = jd.init_state_batch(C).clock, td.init_state_batch(C).clock
+    jst = jst._replace(mu=jnp.full((C,), mu, jnp.float32))
+    tst = tst._replace(mu=torch.full((C,), mu, dtype=torch.float32))
+    jout = _jax_clock(jcplx.from_complex(x), jst, jd._clock, jd.num_slots, interp="sinc")
+    tout = tcr.clock_recovery_block_batch(
+        tcplx.from_complex(x), tst, td._clock, td.num_slots, interp="sinc")
+    _assert_close(tout, jout, atol=1e-4)
+

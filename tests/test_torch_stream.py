@@ -160,7 +160,8 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch(rng, stage):
 # the Costas chain most of the time and shares scheduler 2 with two FIR warps.
 WARP_LAYOUTS = {
     "frontend": (frontend_cuda.ROLES, "costas"),
-    "clock": (clock_cuda.ROLES, "chain"),
+    "clock": (clock_cuda.ROLES["clock"], "chain"),
+    "clock_bu": (clock_cuda.ROLES["clock_bu"], "chain"),
     "agc_block": (stream_cuda.ROLES["agc_block"], "agc"),
     "costas_block": (stream_cuda.ROLES["costas_block"], "costas"),
 }
@@ -177,6 +178,26 @@ def test_chain_warp_has_its_scheduler_to_itself(kernel):
     beside = [r for i, r in enumerate(roles) if i != w and i % 4 == w % 4 and r is not None]
     assert beside == []
     assert "loader" in roles and "store" in roles
+
+
+@pytest.mark.parametrize("kernel", ["clock_sinc", "clock_bu_sinc"])
+def test_sinc_chain_warps_have_a_scheduler_each(kernel):
+    """K2's sinc instances (`clock_sinc_kernel` of csrc/clock.cu) serve
+    SINC_CPB channels a block with SINC_LPC lanes a channel: SINC_CPB *
+    SINC_LPC / 32 chain warps, then the loader and the store warp, as
+    `ROLES` names them.  No two chain warps share a scheduler (warp index
+    mod 4), and beside a chain warp sits at most one other warp, the loader
+    or the store warp, which mostly wait on their barriers."""
+    src = (Path(clock_cuda.__file__).parents[1] / "csrc" / "clock.cu").read_text()
+    lpc = int(re.search(r"#define SINC_LPC (\d+)", src).group(1))
+    cpb = int(re.search(r"#define SINC_CPB (\d+)", src).group(1))
+    chains = cpb * lpc // 32
+    roles = clock_cuda.ROLES[kernel]
+    assert roles == ("chain",) * chains + ("loader", "store")
+    assert "constexpr int SINC_WARPS = SINC_CHAINS + 2;" in src
+    for w in range(chains):
+        beside = [r for i, r in enumerate(roles) if i != w and i % 4 == w % 4]
+        assert len(beside) <= 1 and "chain" not in beside
 
 
 def test_stream_roles_match_the_kernel_source():

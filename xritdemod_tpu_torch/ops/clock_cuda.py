@@ -15,13 +15,17 @@ independent of each other, `segments` the reference's time segments.
 What bounds it on an H100: the bytes are one read of the block and one
 write of the symbols, but each channel is a chain of ~T/sps dependent
 symbols whose next samples lie where the loop filter says, with only C
-threads in flight.  One block serves 32 channels with three warps: a loader
-keeps a 256-row ring of the group's samples in shared memory ahead of the
-walk (`cp.async`, `mbarrier`s), the chain warp reads its eight samples and
-its tap row from shared memory, and a third warp writes the symbols out as
-coalesced rows.  A lane whose position lies outside the ring (the clocks of
-one group may drift apart) reads that symbol's samples from device memory
-inside the kernel; `out_of_ring_symbols` counts those.
+threads in flight.  The mmse instances serve 32 channels a block with three
+warps: a loader keeps a 256-row ring of the group's samples in shared memory
+ahead of the walk (`cp.async`, `mbarrier`s), the chain warp (one lane a
+channel) reads its eight samples and its tap row from shared memory, and a
+third warp writes the symbols out as coalesced rows.  The sinc instances,
+whose taps (a sine, a sine and cosine, sixteen divisions) lie on the chain,
+serve 16 channels a block with four chain warps, eight lanes a channel and
+one tap a lane, and the same loader and store warps (`ROLES`).  A lane whose
+position lies outside the ring (the clocks of one group may drift apart)
+reads that symbol's samples from device memory inside the kernel;
+`out_of_ring_symbols` counts those.
 
 The plain version is `ops/clock_recovery.clock_recovery_block_batch`; a CPU
 tensor takes it, a CUDA tensor takes the kernel.
@@ -57,6 +61,8 @@ __all__ = [
     "launches_sinc",
     "launches_bu",
     "launches_bu_sinc",
+    "sinc_tap_mismatches",
+    "SINC_MU_MIN",
 ]
 
 launches = 0          # the mmse instance
@@ -64,8 +70,12 @@ launches_sinc = 0     # the sinc instance
 launches_bu = 0       # the block update, mmse
 launches_bu_sinc = 0  # the block update, sinc
 
-# The kernel's warps in order of warp index (`enum Role` of csrc/clock.cu).
-ROLES = ("chain", "loader", "store")
+# Each instance's warps in order of warp index: the mmse instances' `enum
+# Role` of csrc/clock.cu; the sinc instances' SINC_CHAINS chain warps (one a
+# scheduler), then the loader and the store warp (clock_sinc_kernel).
+_SINC_ROLES = ("chain",) * 4 + ("loader", "store")
+ROLES = {"clock": ("chain", "loader", "store"), "clock_bu": ("chain", "loader", "store"),
+         "clock_sinc": _SINC_ROLES, "clock_bu_sinc": _SINC_ROLES}
 
 # Per device: a one-element int32 tensor to which every launch adds the
 # symbols whose samples it read from device memory because they lay outside
@@ -221,3 +231,31 @@ def clock_recovery_block_kernel_batch(
     xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
     return clock_recovery_block_kernel_batch_cl(xT, state, params, num_slots, interp, chunk,
                                                 segments)
+
+
+# The least nonzero mu an unchecked step of the sinc instances can meet
+# (csrc/clock.cu, fast_taps): every step's nmu is at least 1.
+SINC_MU_MIN = 2.0 ** -23
+
+
+def sinc_tap_mismatches(device, lo: float = SINC_MU_MIN) -> dict:
+    """At how many floats mu in [0, 1] the sinc instances' branch-free taps
+    (`csrc/clock.cu`: the unchecked steps' `sincos_reduced`, `div_fast_path`)
+    differ in any bit from the exact ones (`sinf`, `sincos_exact`, IEEE
+    division): `trig` counts mu whose sine of pi mu or sine or cosine of
+    pi mu / 4 differ, `taps` mu whose eight normalised taps differ, and
+    `taps_unchecked` those among mu = 0 and mu >= `lo` (the mu an unchecked
+    step meets); of `mu` values in all.  Runs on the card and synchronises:
+    a check, not part of the receive path."""
+    fn = _build.load("clock").xrit_sinc_tap_mismatches
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    device = torch.device(device)
+    counts = torch.zeros(3, dtype=torch.int64, device=device)
+    with _build.launch_on(counts) as stream:
+        err = fn(sinc_table(device).data_ptr(), float(lo), counts.data_ptr(), stream)
+    _build.check(err, "xrit_sinc_tap_mismatches")
+    trig, taps, unchecked = counts.tolist()
+    return dict(mu=int(np.float32(1.0).view(np.uint32)) + 1, trig=trig, taps=taps,
+                taps_unchecked=unchecked, unchecked_mu_min=float(lo))

@@ -1,12 +1,14 @@
 """Probe: what sets the time of the hand-written kernels: the front end
 (K1; also its slab forms on one loop, `frontend_bk8_agc` and
-`frontend_bk8_costas`, in other warp layouts), the clock (K2, its mmse
-instance `clock` and its sinc instance `clock_sinc`), the Viterbi decoder
-(K3), the standalone AGC (K5) and Costas loop (K6).
+`frontend_bk8_costas`, in other warp layouts), the clock (K2: its mmse
+instance `clock`, its sinc instance `clock_sinc`, and their block updates
+at K = 16, `clock_bu` and `clock_bu_sinc`), the Viterbi decoder (K3), the
+standalone AGC (K5) and Costas loop (K6).
 
     python -m xritdemod_tpu_torch.tools.kernel_probe            # needs a GPU and nvcc
     python -m xritdemod_tpu_torch.tools.kernel_probe agc_block costas_block
-    python -m xritdemod_tpu_torch.tools.kernel_probe clock clock_sinc [--rounds N]
+    python -m xritdemod_tpu_torch.tools.kernel_probe clock clock_sinc clock_bu clock_bu_sinc \
+        [--rounds N] [--baseline OTHER/clock.cu]
     python -m xritdemod_tpu_torch.tools.kernel_probe frontend_bk8_agc frontend_bk8_costas
     python -m xritdemod_tpu_torch.tools.kernel_probe viterbi [--rounds N] [--baseline OTHER/viterbi.cu]
 
@@ -23,6 +25,14 @@ share a scheduler.  One JSON line per measurement, the card's name and power
 limit on each.  `--rounds N` times every variant N times, in turn and in
 reverse order every other round, and ends with each one's median, least and
 most.
+
+K2's instances run at C = 2048 and at one channel (the serial path's and
+the apps' count), each variant at both, its symbols, valid mask and state
+against the shipped build's (`bits_equal`).  `--baseline PATH` with a clock
+source (the four entries of `csrc/clock.cu`, e.g. `git show
+<commit>:xritdemod_tpu_torch/csrc/clock.cu` saved under `build/`) times that
+source's build as one more variant of each K2 instance named, through the
+same wrapper, in the same rounds.
 
 K3 runs on the windows the decoder makes of 2048 frames (8192 windows of
 2312 steps, the fused step's shape) and of 8 (128 of 770, a `StreamDecoder`
@@ -45,6 +55,7 @@ it again when a kernel, or the card, changes.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import itertools
 import json
@@ -120,7 +131,50 @@ VARIANTS = {
     },
 }
 
-VARIANTS["clock_sinc"] = {"as shipped": ()}
+# K2's sinc instances (`clock_sinc_kernel`): lanes a channel, channels a
+# block (with 32, two chain warps share each scheduler), the branch-free
+# sines and quotients of the unchecked steps; for the exact form also the
+# unchecked loop's unroll and the group between two looks at the ring
+# (which must hold a group's reach); for the block update the slots
+# interpolated together and the ring's size.
+_SINC_LAYOUT = {
+    "1 lane a channel (32 channels a block, 1 chain warp)":
+        (("#define SINC_LPC 8", "#define SINC_LPC 1"),
+         ("#define SINC_CPB 16", "#define SINC_CPB 32")),
+    "4 lanes a channel (2 chain warps a block)": (("#define SINC_LPC 8", "#define SINC_LPC 4"),),
+    "2 lanes a channel (1 chain warp a block)": (("#define SINC_LPC 8", "#define SINC_LPC 2"),),
+    "8 channels a block (2 chain warps)": (("#define SINC_CPB 16", "#define SINC_CPB 8"),),
+    "32 channels a block (8 chain warps, 2 a scheduler)":
+        (("#define SINC_CPB 16", "#define SINC_CPB 32"),),
+    "sines and quotients with their branches (sinf, sincos_exact, a / b)":
+        (("#define SINC_BRANCH_FREE 1", "#define SINC_BRANCH_FREE 0"),),
+}
+VARIANTS["clock_sinc"] = {
+    "as shipped": (),
+    **_SINC_LAYOUT,
+    "1 symbol per turn of the loop":
+        (("constexpr int SINC_UNROLL = 2;", "constexpr int SINC_UNROLL = 1;"),),
+    "4 symbols per turn of the loop":
+        (("constexpr int SINC_UNROLL = 2;", "constexpr int SINC_UNROLL = 4;"),),
+    "8 symbols between looks at the ring":
+        (("constexpr int SINC_GROUP = 32;", "constexpr int SINC_GROUP = 8;"),),
+    "16 symbols between looks at the ring":
+        (("constexpr int SINC_GROUP = 32;", "constexpr int SINC_GROUP = 16;"),),
+    "8 symbols between looks at a ring of 8 chunks":
+        (("constexpr int SINC_GROUP = 32;", "constexpr int SINC_GROUP = 8;"),
+         ("constexpr int SINC_NCHUNK = 16;", "constexpr int SINC_NCHUNK = 8;")),
+}
+VARIANTS["clock_bu_sinc"] = {
+    "as shipped": (),
+    **_SINC_LAYOUT,
+    "2 slots interpolated together":
+        (("constexpr int SINC_BU_BATCH = 4;", "constexpr int SINC_BU_BATCH = 2;"),),
+    "8 slots interpolated together":
+        (("constexpr int SINC_BU_BATCH = 4;", "constexpr int SINC_BU_BATCH = 8;"),),
+    "a ring of 8 chunks (256 rows)":
+        (("constexpr int SINC_NCHUNK = 16;", "constexpr int SINC_NCHUNK = 8;"),),
+}
+VARIANTS["clock_bu"] = {"as shipped": ()}
 
 # K1 with the slab on one loop (block_k 8) where its warps sit: as shipped
 # the Costas warp has scheduler 3 to itself and the AGC warp sits among the
@@ -169,7 +223,13 @@ VARIANTS["viterbi"] = {
 # The library (`csrc/<name>.cu`) that holds each kernel.
 LIBRARY = {"frontend": "frontend", "frontend_bk8_agc": "frontend",
            "frontend_bk8_costas": "frontend", "clock": "clock", "clock_sinc": "clock",
+           "clock_bu": "clock", "clock_bu_sinc": "clock",
            "agc_block": "stream", "costas_block": "stream", "viterbi": "viterbi"}
+
+# K2's instances: (interpolator, chunk K); timed at C = CHANNELS and at one
+# channel (the serial path's and the apps' count).
+CLOCKS = {"clock": ("mmse", 0), "clock_sinc": ("sinc", 0), "clock_bu": ("mmse", 16),
+          "clock_bu_sinc": ("sinc", 16)}
 
 # Frames per `CaduDecoder` call whose Viterbi windows the sweep times.
 SWEEP_FRAMES = (1, 8, 64, 256, 512, 1024, 2048, 4096, 8192, 16384)
@@ -217,6 +277,36 @@ def _baseline(path: str):
         _build.check(err, "baseline xrit_viterbi")
         return bits
     return decode
+
+
+def _clock_baseline(path: str) -> ctypes.CDLL:
+    """The library of another clock source (the four entries of
+    `csrc/clock.cu`, the same arguments), built against this tree's headers;
+    `_build.using("clock", lib)` times it through the same wrapper."""
+    lib = _build.build_dir() / "variants" / "clock_baseline.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-I", str(_build._CSRC), "-o", str(lib),
+                    path], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+def _clock_bits(out) -> list:
+    """A K2 result as its tensors: symbols, valid mask, state."""
+    (sym, valid, st) = out
+    return [sym.re, sym.im, valid, st.mu, st.omega, st.ii, st.p.re, st.p.im, st.c.re, st.c.im]
+
+
+def _same_bits(a: list, b: list) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _build_variants(kernel: str) -> list:
+    """(variant, library) for each of VARIANTS[kernel], the builds in parallel."""
+    library = LIBRARY[kernel]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        futs = [(what, pool.submit(_build.build_variant, library, f"{kernel}_{i}", (), edits))
+                for i, (what, edits) in enumerate(VARIANTS[kernel].items())]
+        return [(what, f.result()) for what, f in futs]
 
 
 def _spread(kernel: str, times: dict, card: str) -> None:
@@ -294,8 +384,10 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    # A baseline source is the Viterbi kernel's or the clock's.
+    clock_baseline = baseline is not None and "xrit_clock_sinc" in open(baseline).read()
     if "viterbi" in kernels:
-        viterbi_probe(card, dev, baseline, rounds)
+        viterbi_probe(card, dev, None if clock_baseline else baseline, rounds)
         kernels = [k for k in kernels if k != "viterbi"]
         if not kernels:
             return
@@ -310,28 +402,44 @@ def main() -> None:
         x, st.agc_gain, st.rrc_hist, st.costas, demod._agc, demod._rrc_taps, demod._costas,
         **form)
     y = front()()[0]
-    clock = lambda interp: lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(
-        y, st.clock, demod._clock, demod.num_slots, interp)
+    # K2 on the front end's output, at C = CHANNELS and at its first channel.
+    y1 = CF32(y.re[:, :1].contiguous(), y.im[:, :1].contiguous())
+    st1 = demod.init_state_batch(1)
+    clock = lambda interp, chunk=0, one=False: lambda: (
+        clock_cuda.clock_recovery_block_kernel_batch_cl(
+            y1 if one else y, (st1 if one else st).clock, demod._clock, demod.num_slots,
+            interp, chunk))
+    clock_shapes = {(CHANNELS, BLOCK_LEN): False, (1, BLOCK_LEN): True}
     xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())      # (C, T)
     launches = dict(
-        frontend=front(), clock=clock("mmse"), clock_sinc=clock("sinc"),
+        frontend=front(), **{k: clock(*v) for k, v in CLOCKS.items()},
         frontend_bk8_agc=front(block_k=8, block_stages="agc"),
         frontend_bk8_costas=front(block_k=8, block_stages="costas"),
         agc_block=lambda: stream_cuda.agc_block_kernel(xc, st.agc_gain, demod._agc),
         costas_block=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas),
     )
+    old_clock = _clock_baseline(baseline) if clock_baseline else None
     for kernel in kernels:
         library = LIBRARY[kernel]
-        libs = [(what, _build.build_variant(library, f"{kernel}_{i}", edits=edits))
-                for i, (what, edits) in enumerate(VARIANTS[kernel].items())]
+        libs = _build_variants(kernel)
+        if kernel in CLOCKS and old_clock is not None:
+            libs.append((f"baseline {baseline}", old_clock))
+        shapes = clock_shapes if kernel in CLOCKS else {(CHANNELS, BLOCK_LEN): False}
+        runs = {shape: clock(*CLOCKS[kernel], one=True) if one else launches[kernel]
+                for shape, one in shapes.items()}
+        want = {shape: _clock_bits(run()) for shape, run in runs.items()} \
+            if kernel in CLOCKS else {}
         times: dict[str, list[float]] = {}
         for r in range(rounds):
             for what, lib in libs if r % 2 == 0 else libs[::-1]:
-                with _build.using(library, lib):
-                    ms = _time_ms(launches[kernel])
-                times.setdefault(what, []).append(ms)
-                print(json.dumps(dict(kernel=kernel, round=r, variant=what, ms=ms, card=card,
-                                      shape=[CHANNELS, BLOCK_LEN])), flush=True)
+                for shape, run in runs.items():
+                    row = dict(kernel=kernel, round=r, variant=what, card=card, shape=list(shape))
+                    with _build.using(library, lib):
+                        row["ms"] = _time_ms(run)
+                        if r == 0 and shape in want:
+                            row["bits_equal"] = _same_bits(_clock_bits(run()), want[shape])
+                    times.setdefault(f"{what} | {list(shape)}", []).append(row["ms"])
+                    print(json.dumps(row), flush=True)
         if rounds > 1:
             _spread(kernel, times, card)
 
