@@ -13,7 +13,8 @@ chained blocks, each version carrying its own state) and at small ragged
 shapes (also: the clock where channels stand further apart than its
 shared-memory ring, the sinc clock from edge states of mu and at one
 channel, its branch-free taps against the exact ones at every float mu in
-[0, 1], and the Costas step's sine and cosine against the CUDA library's;
+[0, 1], and the Costas step's sine and cosine against the CUDA library's,
+the slab walks' large-argument path at every float with |x| >= 105615;
 the plain recurrences run as replayed CUDA graphs, `ops/scan.py`,
 themselves held bit-equal to eager loops first; the banded-matmul FIR at the
 split path's shape against cuDNN and a float64 sum), then drives the paths at
@@ -35,7 +36,10 @@ C = 2048 channels x 131072 samples per block, on synthesised captures:
     K2's block update) into `StreamDecoder`s; `block_batch` with the other
     forms (K1-bk8 in float32, K1-bf16, K2's sinc block update); every new
     instance against its plain version at its path's shape and on the
-    ragged shapes, at K = 1 K6 and K2 against their exact instances; the
+    ragged shapes (the slab kernels also at one channel, 17 and 48 channels,
+    K6 at a K that runs across its tiles, and from Costas and AGC edge
+    states), at K = 1 K6, K2 and K1's Costas slab against their exact
+    instances; the slab instances built without stack frame or spill; the
     times beside the exact forms'; K1 with the slab on one loop
     (`block_stages="agc"` or `"costas"`, float32 and bf16) called as its op,
     and the four float32 forms of K = 8 timed in turns on one input;
@@ -712,6 +716,14 @@ def check_trig() -> dict:
         out[name] = dict(lo=lo, hi=hi, arguments=n, mismatches=bad)
         if bad:
             fail(f"sincos_exact differs from sinf/cosf in {bad} of {n} arguments in [{lo}, {hi}]")
+    # The slab walks' own large-argument path, at every float past the threshold.
+    t0 = time.perf_counter()
+    bad = frontend_cuda.large_trig_mismatches(DEV)
+    out["large_arguments_every_float"] = dict(
+        abs_at_least=105615.0, arguments=2 * (frontend_cuda.LARGE_HI - frontend_cuda.LARGE_LO + 1),
+        mismatches=bad, seconds=time.perf_counter() - t0)
+    if bad:
+        fail(f"sincos_large_regs differs from sinf/cosf at {bad} large arguments")
     return out
 
 
@@ -1444,6 +1456,10 @@ ONCHIP_FORMS_KERNELS = ("frontend_bk8", "frontend_bf16", "clock", "clock_bu_sinc
 ONCHIP_FORMS_BLOCKS = 2
 RAGGED_K_FRONT = (1, 4, 8, 16, 64)     # K1's and K6's slabs on the ragged shapes
 RAGGED_K_STAGES = (1, 8, 64)           # K1's slab on one loop, float32 (bf16: ONCHIP_K)
+RAGGED_K_COSTAS = RAGGED_K_FRONT + (3,)  # K6: and a slab that runs across its 128-sample tiles
+# The slab kernels' shapes beyond RAGGED_SHAPES: one channel, 17 (neither a
+# multiple of K1-slab's 16 channels a block nor of 32), 48 channels.
+SLAB_SHAPES = RAGGED_SHAPES + ((1, 1000), (17, 480), (48, 96))
 # K1's forms timed in turns on one input (the float32 forms of `block_k` 8:
 # the exact form, the slab on both loops, on the AGC alone, on the Costas
 # loop alone), and the rounds; the bf16 one-loop forms are launched beside.
@@ -1498,6 +1514,75 @@ def ragged_len(T: int, K: int) -> int:
     return T - T % K
 
 
+def _flat(out) -> list:
+    """A kernel's result as a flat list of its tensors."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)] if isinstance(out, (tuple, list)) else []
+
+
+# Costas states at the edges the slab walks' fast paths rely on (loops.cuh):
+# the wrap bounds +-2 pi and the floats just past them, +-0, freq at and past
+# the clip bounds (with inputs of |x| ~ 1.2 the errors push it either way,
+# so the clip binds), phases above the large-argument threshold 105615
+# and between the slab walk's guard (65536) and it, and freq large enough
+# that phase + k * freq leaves the guard within a slab.
+EDGE_PHASE = (2 * np.pi, -2 * np.pi, np.nextafter(np.float32(2 * np.pi), np.float32(9)),
+              -np.nextafter(np.float32(2 * np.pi), np.float32(9)), 0.0, -0.0, 3.0, 2e5, -2e5,
+              105615.0, 7e4, 6.5e4, 12.0, -12.5, 1.0, 2.0)
+EDGE_FREQ_SCALE = (1.0, -1.0, 1.5, -1.5, 0.0, 0.01, -0.01)   # of freq_max; then absolute:
+EDGE_FREQ_ABS = (600.0, -600.0, 4096.0, 0.3, -0.3, 1e-3, 0.05, -0.05, 0.2)
+EDGE_K = (1, 4, 8, 16, 64)
+EDGE_MAX_GAIN = (0.0, 2.5, 4000.0)
+
+
+def check_slab_edges(demod: Demodulator) -> dict:
+    """K6's and K1's slab forms from edge states (EDGE_PHASE, the freqs
+    above), two chained blocks each, against their plain versions; K1 also
+    with the AGC's max-gain clamp binding in a slab's first row (gains
+    starting at a max_gain of 2.5) and in mid-slab (gains climbing on
+    small inputs), and with max_gain 0.  Every form at every EDGE_K, bit for
+    bit (`max_abs_err` 0.0)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
+    cp = demod._costas
+    freq = [f * cp.freq_max for f in EDGE_FREQ_SCALE] + list(EDGE_FREQ_ABS)
+    C = len(EDGE_PHASE)
+    ph0 = torch.tensor([float(v) for v in EDGE_PHASE], dtype=torch.float32, device=DEV)
+    fr0 = torch.tensor(freq[:C], dtype=torch.float32, device=DEV)
+    out = {"costas_slab": 0.0, "frontend_forms": 0.0}
+    for K in EDGE_K:
+        kc = pc = costas_op.CostasState(ph0, fr0)
+        for _ in range(2):
+            xc = CF32(rnd(C, 1024, scale=1.2), rnd(C, 1024, scale=1.2))
+            ky, kc2 = stream_cuda.costas_block_kernel(xc, kc, cp, K)
+            py, pc2 = costas_op.costas_block_update(xc, pc, cp, K)
+            out["costas_slab"] = max(out["costas_slab"], max_err(ky.re, py.re),
+                                     max_err(ky.im, py.im), max_err(kc2.phase, pc2.phase),
+                                     max_err(kc2.freq, pc2.freq))
+            kc, pc = kc2, pc2
+    for K in EDGE_K:
+        T = 384 if 48 % K == 0 else 256
+        for stages in ("both", "costas", "agc"):
+            for mg in EDGE_MAX_GAIN:
+                agc = demod._agc._replace(max_gain=mg)
+                gain0 = torch.linspace(0.5, 3.0, C, device=DEV)
+                gain0[:4] = 2.5                  # at the clamp (2.5) in a slab's first row
+                kfe = pfe = (gain0, CF32(rnd(C, 62), rnd(C, 62)),
+                             costas_op.CostasState(ph0, fr0))
+                for _ in range(2):
+                    x = CF32(rnd(T, C, scale=1e-3), rnd(T, C, scale=1e-3))
+                    k = frontend_cuda.demod_frontend(x, *kfe, agc, demod._rrc_taps, cp,
+                                                     block_k=K, block_stages=stages)
+                    p = frontend_cuda.demod_frontend_plain(x, *pfe, agc, demod._rrc_taps, cp,
+                                                           block_k=K, block_stages=stages)
+                    out["frontend_forms"] = max(out["frontend_forms"], *frontend_errs(k, p))
+                    kfe, pfe = k[1:], p[1:]
+    if not max(out.values()) <= 0.0:
+        fail(f"onchip: a slab form disagrees with its plain version from edge states: {out}")
+    return out
+
+
 def check_onchip_ragged(demod: Demodulator) -> dict:
     """The new instances against their plain versions on RAGGED_SHAPES (each
     block length cut to a whole number of slabs for K1 and K6), two chained
@@ -1516,7 +1601,7 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
         (bk, stages, prec) for stages in ("agc", "costas")
         for bk, prec in [(k, "highest") for k in RAGGED_K_STAGES] + [(ONCHIP_K, "bf16")]]
     stage_s = 0.0
-    for C, T in RAGGED_SHAPES:
+    for C, T in SLAB_SHAPES:
         st = demod.init_state_batch(C)
         for bk, stages, prec in forms:
             Tk = ragged_len(T, max(bk, 1))
@@ -1532,10 +1617,15 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
                 p = frontend_cuda.demod_frontend_plain(x, *pfe, *fe, block_k=bk, precision=prec,
                                                        block_stages=stages)
                 out[key] = max(out[key], *frontend_errs(k, p))
+                if bk == 1 and stages == "costas":
+                    # The Costas slab at K = 1 is the exact loop: the exact instance.
+                    e = frontend_cuda.demod_frontend(x, *kfe, *fe, precision=prec)
+                    out["k1_equal_to_exact"] &= all(
+                        torch.equal(a, b) for a, b in zip(_flat(e), _flat(k)))
                 kfe, pfe = k[1:], p[1:]
             if stages != "both":
                 stage_s += time.perf_counter() - t0
-        for K in RAGGED_K_FRONT:
+        for K in RAGGED_K_COSTAS:
             Tk = ragged_len(T, K)
             if Tk < K:
                 continue
@@ -1911,6 +2001,7 @@ def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdu
     del x0, x1
     torch.cuda.empty_cache()
     ragged = check_onchip_ragged(main["rx"]._demod)
+    edges = check_slab_edges(main["rx"]._demod)
     c_s = time.perf_counter() - t2
 
     steady = float(np.mean(oms[1:ONCHIP_BLOCKS]))
@@ -1929,7 +2020,8 @@ def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdu
         kernels=[dict(name=r["name"], ms=r["ms"], exact_ms=r["exact_ms"],
                       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                       max_abs_err=r["max_abs_err"]) for r in rows],
-        ragged_shapes_max_abs_err=ragged, checks_seconds=c_s,
+        ragged_shapes_max_abs_err=ragged, slab_edge_states_max_abs_err=edges,
+        checks_seconds=c_s,
         seconds=time.perf_counter() - t0)
     say("k1_forms", card=smi, **k1_forms)
     return rows, dict(fused=fused_counts, split=split_counts, forms=forms["launches"],
@@ -3179,6 +3271,20 @@ def kernel_frames(log: str, mangled: str) -> dict:
     return out
 
 
+# The slab kernels' instances (K1's `frontend_slab_kernel`, K6's
+# `costas_spread_kernel` and `stream_kernel<CostasSlabOp>`), by mangled name.
+SLAB_KERNEL_NAMES = re.compile(
+    r"_Z20frontend_slab_kernel\S*|_Z20costas_spread_kernel\S*|_Z13stream_kernelI12CostasSlabOp\S*")
+
+
+def slab_frames(log: str) -> dict:
+    """`ptxas -v`'s stack frame, spill stores and spill loads (bytes) of
+    every slab kernel instance, by mangled name."""
+    return {name: [int(frame), int(stores), int(loads)] for name, frame, stores, loads in re.findall(
+        r"Function properties for (\S+)\s+(\d+) bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads", log) if SLAB_KERNEL_NAMES.fullmatch(name)}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -3199,6 +3305,7 @@ def main() -> None:
     # `sincos_exact` in their checked steps: no spill.
     k2 = kernel_frames(built["log"], "_Z12clock_kernel")
     k2s = kernel_frames(built["log"], "_Z17clock_sinc_kernel")
+    slabs = slab_frames(built["log"])
     # The host library of the apps' sample ring, built here, in this
     # process: the apps line reports which ring they got, and why.
     t_native = time.perf_counter()
@@ -3207,6 +3314,7 @@ def main() -> None:
         directory=str(_build.build_dir()), ptxas=[
             ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln],
         viterbi_instances=k3, clock_instances=k2, clock_sinc_instances=k2s,
+        slab_instances=slabs,
         native_library=dict(loaded=native_ok, path=str(native.library_path()),
                             error=native.last_error(),
                             seconds=time.perf_counter() - t_native))
@@ -3216,6 +3324,9 @@ def main() -> None:
             or any(v[1] or v[2] for v in [*k2.values(), *k2s.values()]) or k2["0"][0] or k2["2"][0]:
         fail(f"clock: every instance must build without spill, mmse without stack frame: "
              f"{k2}, {k2s}")
+    # K1's 16 slab instances, K6's three spread instances and its lane-a-channel one.
+    if len(slabs) != 20 or any(any(v) for v in slabs.values()):
+        fail(f"slab kernels: every instance must build without stack frame or spill: {slabs}")
 
     say("fir", card=smi, **check_fir())
     say("fir_matmul", card=smi, **check_fir_matmul())

@@ -250,25 +250,106 @@ def test_frontend_form_arguments():
         [48, 48, 48, 48, 48, 64, 64]
     with pytest.raises(ValueError):
         frontend_cuda.tile_rows(128)
-    # The slab forms' AGC warp sits beside the Costas warp (scheduler 3).
+    # Beside an exact Costas chain (the exact form, block_stages "agc") the
+    # Costas warp has scheduler 3 to itself and the AGC warp sits among the
+    # FIR warps; beside the Costas slab walk the gain chain (warp 7) and two
+    # of the three magnitude warps join scheduler 3.
     assert frontend_cuda.roles(0).index("agc") % 4 != 3
     assert frontend_cuda.roles(64)[3] == "costas" and frontend_cuda.roles(64)[7] == "agc"
-    # With the slab on one loop the Costas warp keeps scheduler 3 to itself
-    # and the AGC warp sits among the FIR warps, as in the exact form.
     for K in (8, 64):
-        for stages in ("agc", "costas"):
+        r = frontend_cuda.roles(K, "agc")
+        assert r[3] == "costas" and r.index("agc") % 4 != 3
+        assert [w for w, name in enumerate(r) if w % 4 == 3 and name] == [3]
+        for stages in ("both", "costas"):
             r = frontend_cuda.roles(K, stages)
-            assert r[3] == "costas" and r.index("agc") % 4 != 3
-            assert [w for w, name in enumerate(r) if w % 4 == 3 and name] == [3]
-            assert sorted(n for n in r if n) == sorted(n for n in frontend_cuda.roles(K) if n)
-    assert frontend_cuda.roles(8, "agc") == frontend_cuda.roles(8, "costas") == \
-        frontend_cuda.roles(0)
+            assert r[3] == "costas" and r[7] == "agc" and r.count("mag") == 3
+            assert {r[w] for w in range(3, len(r), 4)} == {"costas", "agc", "mag"}
+    assert frontend_cuda.roles(8, "agc") == frontend_cuda.roles(0)
+    assert frontend_cuda.roles(8, "costas") == frontend_cuda.roles(8)
     with pytest.raises(ValueError):
         frontend_cuda.demod_frontend(*args, block_k=8, block_stages="costa")
     with pytest.raises(ValueError):
         frontend_cuda.demod_frontend_plain(*args, block_k=8, block_stages="all")
     with pytest.raises(ValueError):
         frontend_cuda.roles(8, "none")
+
+
+# Edge states of the slab forms, the ones the CUDA kernels' fast paths rely
+# on (`csrc/loops.cuh`): Costas phases at and just past +-2 pi (the wraps),
+# freq at its clip bounds with errors pushing it outward (the clip binds;
+# small inputs, so that the JAX form's deferred clip, which the port applies
+# at the slab's end, moves the phase by less than the tolerance), and a
+# phase above the kernels' large-argument threshold 105615 (an input of
+# zero errors: both forms only wrap such a phase, by the same steps); the AGC with the
+# max-gain clamp binding at a slab's first row and in mid-slab (gains
+# climbing from just below it), and with max_gain 0 (no clamp).
+_TWO_PI32 = float(np.float32(2 * np.pi))
+EDGE_PHASE = [_TWO_PI32, -_TWO_PI32, float(np.nextafter(np.float32(_TWO_PI32), np.float32(9))),
+              -float(np.nextafter(np.float32(_TWO_PI32), np.float32(9))), 0.0, 3.1, 2.0e5, -1.5e5]
+EDGE_FREQ = [0.01, -0.01, 0.01, -0.01, 0.004, -0.004, 0.0, 0.0]
+SLAB_EDGE_CASES = [("costas", 8), ("costas", 16), ("agc", 8, 2.0), ("agc", 8, 0.0)]
+
+
+@pytest.mark.parametrize("case", SLAB_EDGE_CASES)
+def test_slab_forms_match_jax_at_edge_states(case):
+    """`costas_slab_steps` against the JAX `costas_block_update`, and
+    `agc_slab_gains` against the JAX slab AGC (`demod_frontend_pallas`
+    with `block_stages="agc"`, interpret mode: its gain and FIR history,
+    the block's last AGC outputs), from the edge states above, with the
+    file's tolerances: symbols 1e-5, phase 1e-4, freq 1e-5, gains and
+    history 1e-6 relative."""
+    rng = np.random.default_rng(23)
+    if case[0] == "costas":
+        K, T = case[1], 512
+        C = len(EDGE_PHASE)
+        amp = np.array([0.02, 0.02, 0.02, 0.02, 0.5, 0.5, 0.0, 0.0], np.float32)[:, None]
+        bits = 1.0 - 2.0 * rng.integers(0, 2, (C, T))
+        n = np.arange(T)
+        re = (amp * bits * np.cos(0.01 * n)).astype(np.float32)
+        im = (amp * np.abs(bits) * np.sin(0.01 * n + 0.4)).astype(np.float32)
+        phase = np.array(EDGE_PHASE, np.float32)
+        freq = np.array(EDGE_FREQ, np.float32)
+        jp = jcostas.costas_gains(0.0037)._replace(freq_min=-0.01, freq_max=0.01)
+        tp = tcostas.costas_gains(0.0037)._replace(freq_min=-0.01, freq_max=0.01)
+        jy, js = jcostas.costas_block_update(
+            _jcf(re, im), jcostas.CostasState(jnp.asarray(phase), jnp.asarray(freq)), jp, chunk=K)
+        ty, ts = tcostas.costas_block_update(
+            _tcf(re, im), tcostas.CostasState(_t(phase), _t(freq)), tp, K)
+        np.testing.assert_allclose(ty.re.numpy(), np.asarray(jy.re), atol=1e-5)
+        np.testing.assert_allclose(ty.im.numpy(), np.asarray(jy.im), atol=1e-5)
+        np.testing.assert_allclose(ts.phase.numpy(), np.asarray(js.phase), atol=1e-4)
+        np.testing.assert_allclose(ts.freq.numpy(), np.asarray(js.freq), atol=1e-5)
+        # The clip bound: without it the first four channels' freq ends elsewhere.
+        _, free = tcostas.costas_block_update(
+            _tcf(re, im), tcostas.CostasState(_t(phase), _t(freq)), tcostas.costas_gains(0.0037), K)
+        assert (free.freq.numpy()[:4] != ts.freq.numpy()[:4]).all()
+        assert (np.abs(ts.phase.numpy()[6:]) > 105615.0).all()   # large all along
+        return
+    _, K, M = case
+    T = 256
+    re, im, taps, gain, hr, hi, phase, freq = _fe_setup(T, 31)
+    gain[:16] = M if M else 3.0                     # at the clamp in a slab's first row
+    gain[16:48] = M - 0.05 if M else 1.5            # climbing into it mid-slab
+    re[:48] *= 1e-3
+    im[:48] *= 1e-3
+    agc_j, agc_t = jagc.AgcParams(max_gain=M), tagc.AgcParams(max_gain=M)
+    _, jg, jh, _ = demod_frontend_pallas(
+        _jcf(re.T.copy(), im.T.copy()), jnp.asarray(gain), _jcf(hr, hi),
+        jcostas.CostasState(jnp.asarray(phase), jnp.asarray(freq)), agc_j,
+        tuple(float(v) for v in taps), jcostas.costas_gains(0.0037), rows=256, interpret=True,
+        block_k=K, block_stages="agc")
+    mag = torch.hypot(_t(re.T.copy()), _t(im.T.copy()))
+    gains, g = tagc.agc_slab_gains(mag, _t(gain), agc_t, K)
+    nh = len(taps) - 1
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose((_t(re.T.copy()) * gains)[-nh:].T.numpy(), np.asarray(jh.re),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose((_t(im.T.copy()) * gains)[-nh:].T.numpy(), np.asarray(jh.im),
+                               rtol=1e-6, atol=1e-7)
+    if M:
+        assert (gains.numpy()[:, :16] == np.float32(M)).all()             # bound in row 0
+        met = gains.numpy()[:, 16:48]
+        assert (met[0] < M).all() and (met[-1] == np.float32(M)).any()    # and mid-slab
 
 
 # --------------------------------------------------------------------------

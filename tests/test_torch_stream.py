@@ -160,6 +160,8 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch(rng, stage):
 # the Costas chain most of the time and shares scheduler 2 with two FIR warps.
 WARP_LAYOUTS = {
     "frontend": (frontend_cuda.ROLES, "costas"),
+    "frontend_slab_exact_costas": (frontend_cuda.roles(8, "agc"), "costas"),
+    "frontend_slab_exact_costas_tr64": (frontend_cuda.roles(64, "agc"), "costas"),
     "clock": (clock_cuda.ROLES["clock"], "chain"),
     "clock_bu": (clock_cuda.ROLES["clock_bu"], "chain"),
     "agc_block": (stream_cuda.ROLES["agc_block"], "agc"),
@@ -198,6 +200,40 @@ def test_sinc_chain_warps_have_a_scheduler_each(kernel):
     for w in range(chains):
         beside = [r for i, r in enumerate(roles) if i != w and i % 4 == w % 4]
         assert len(beside) <= 1 and "chain" not in beside
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_slab_chain_warps_have_a_scheduler_each(lanes):
+    """K6's spread slab walk (`costas_spread_kernel` of csrc/stream.cu)
+    serves CPB channels a block with SLAB_LPC lanes a channel: its chain
+    warps, at warps 3, 1, 4, 6 (`SpreadLayout`), sit one to a scheduler,
+    beside at most the loader or the store warp; `ROLES["costas_slab"]` is
+    the shipped SLAB_LPC's layout.  K1's slab kernel spreads the walk over
+    32 / SCPB lanes a channel in one warp, its Costas warp 3."""
+    src = (Path(stream_cuda.__file__).parents[1] / "csrc" / "stream.cu").read_text()
+    lpc = int(re.search(r"#define SLAB_LPC (\d+)", src).group(1))
+    cpb = int(re.search(r"#define CPB (\d+)", src).group(1))
+    assert stream_cuda.ROLES["costas_slab"] == stream_cuda.spread_roles(lpc)
+    assert lpc == stream_cuda.SLAB_LANES
+    assert "return w == 3 ? 0 : CHAINS > 1 && w == 1 ? 1 : CHAINS > 2 && w == 4 ? 2" in src
+    roles = stream_cuda.spread_roles(lanes)
+    chains = [w for w, r in enumerate(roles) if r == "costas"]
+    assert len(chains) == max(1, cpb * lanes // 32)
+    for w in chains:
+        beside = [r for i, r in enumerate(roles) if i != w and i % 4 == w % 4 and r]
+        assert len(beside) <= 1 and "costas" not in beside
+    fsrc = (Path(stream_cuda.__file__).parents[1] / "csrc" / "frontend.cu").read_text()
+    scpb = int(re.search(r"#define SCPB (\d+)", fsrc).group(1))
+    assert scpb == 16 and "kernel<<<(a.C + SCPB - 1) / SCPB," in fsrc
+    assert "constexpr int L = 32 / SCPB, N = SK / L;" in fsrc
+    # K1's slab walk: one Costas warp (warp 3); beside it, on scheduler 3, the
+    # gain chain (SLAB_AGC_WARP) and SLAB_MAG_WARPS - 1 of the magnitude
+    # warps (`SlabLayout`), as `roles` names them.
+    mags = int(re.search(r"#define SLAB_MAG_WARPS (\d+)", fsrc).group(1))
+    assert "#define SLAB_AGC_WARP IDLE7 " in fsrc
+    r = frontend_cuda.roles(8)
+    assert r.count("costas") == 1 and r[3] == "costas" and r[7] == "agc"
+    assert r.count("mag") == mags and r[11] == "mag" and r.count("agc") == 1
 
 
 def test_stream_roles_match_the_kernel_source():

@@ -36,11 +36,15 @@
 // Costas step as ops/costas.costas_block.
 //
 // The Costas kernel has a second form, the slab update of the Pallas fused
-// kernel's block_k (CostasSlabOp; ops/costas.costas_block_update): its chain
-// warp rotates K samples on the slab's frozen ramp (loops.cuh, the same
-// device functions as frontend.cu's), independent of each other, and updates
-// the loop once a slab.  Slabs run on across tiles, from the block's first
-// sample.
+// kernel's block_k (ops/costas.costas_block_update): K samples rotated on the
+// slab's frozen ramp (loops.cuh, the same device functions as frontend.cu's),
+// independent of each other, and the loop updated once a slab.  For K 4, 8
+// and 16 (costas_spread_kernel) a slab's rotations are spread over SLAB_LPC
+// lanes a channel, four chain warps at K = 8: the walk's issue, which one
+// lane a channel spends on K rotations a slab, is spread, and what stays on
+// the chain is one rotation, a gather, the sums, the update and the wraps.
+// Any other K walks a lane a channel (CostasSlabOp), slabs running on across
+// tiles, from the block's first sample.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,9 +88,9 @@ struct Args {
 
 // A tile stage holds NP planes: re and im, and for the AGC the magnitudes,
 // which the gain chain replaces by the gain each sample met.
-template <int NP>
+template <int NP, int PITCH = ROW>
 struct Shared {
-    float t[NS][NP][CPB][ROW];
+    float t[NS][NP][CPB][PITCH];
     uint64_t x_full[NS], m_full[NS], c_full[NS], free_[NS];
 };
 
@@ -235,8 +239,8 @@ struct CostasSlabOp {
     }
 };
 
-template <int NP>
-__device__ __forceinline__ void load_tiles(const Args& a, Shared<NP>& s, const Group& g) {
+template <int NP, int PITCH>
+__device__ __forceinline__ void load_tiles(const Args& a, Shared<NP, PITCH>& s, const Group& g) {
     for (int i = 0; i < g.ntiles; ++i) {
         const int st = i % NS;
         mbar_wait(&s.free_[st], ((i / NS) & 1) ^ 1);
@@ -292,8 +296,8 @@ __device__ __forceinline__ void walk_chain(const Args& a, Op& op, Shared<Op::NP>
     if (g.live) op.save(g.c0 + g.lane);
 }
 
-template <int NP>
-__device__ __forceinline__ void store_tiles(const Args& a, Shared<NP>& s, const Group& g) {
+template <int NP, int PITCH>
+__device__ __forceinline__ void store_tiles(const Args& a, Shared<NP, PITCH>& s, const Group& g) {
     const int rows = min(CPB, a.C - g.c0);
     for (int i = 0; i < g.ntiles; ++i) {
         const int st = i % NS;
@@ -365,6 +369,134 @@ static int launch(const Args& a, const Op& op, void* stream) {
     return (int)cudaGetLastError();
 }
 
+// K6's slab form for K dividing TS (SpreadLayout): the walk of loops.cuh's
+// costas_slab_spread, SLAB_LPC lanes a channel.  A tile then holds whole
+// slabs (T and TS are multiples of K, slabs start at the block's first
+// sample), so a group of lanes walks its row slab by slab, the next slab's
+// samples read before this one's rotations.  With SLAB_LPC lanes, the CPB
+// channels take CPB * SLAB_LPC / 32 chain warps (at least one), which sit
+// one to a scheduler: warp 3 alone, then warp 1 (scheduler 1, free in the
+// Costas kernels), then warps 4 and 6 beside the loader and the store warp.
+// Rows are padded to TS + SLAB_LPC floats, so the L lanes of a channel and
+// the channels of a warp read 32 different banks.
+#define SLAB_LPC 8       // lanes a channel in the spread slab walk
+
+template <int L>
+struct SpreadLayout {
+    static constexpr int CHAINS = CPB * L / 32 > 1 ? CPB * L / 32 : 1;
+    static constexpr int WARPS = CHAINS <= 2 ? 4 : 7;
+    static constexpr int PITCH = TS + L;
+    static_assert(CHAINS == 1 || CHAINS == 2 || CHAINS == 4, "one chain warp a scheduler");
+    // The chain index of warp w, or -1.
+    static __device__ __forceinline__ int chain(int w) {
+        return w == 3 ? 0 : CHAINS > 1 && w == 1 ? 1 : CHAINS > 2 && w == 4 ? 2
+             : CHAINS > 2 && w == 6 ? 3 : -1;
+    }
+};
+
+template <int K, int L>
+__device__ __forceinline__ void spread_chain(const Args& a, const CostasSlabOp& op,
+                                             Shared<2, TS + L>& s, int n_chain, int c0,
+                                             int ntiles) {
+    constexpr int N = K / L;
+    constexpr int PL = CPB * (TS + L) * 4;             // bytes from the re plane to the im
+    const int t = n_chain * 32 + (threadIdx.x & 31);
+    const int row = t / L, j = t % L;
+    const bool on = row < CPB;                         // L = 1: lanes past CPB idle
+    const int cc = min(c0 + row, a.C - 1);
+    float phase = 0.0f, freq = 0.0f, kf[N];
+    if (on) {
+        phase = op.phase_in[cc];
+        freq = op.freq_in[cc];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) kf[i] = (float)(j + L * i);
+    const uint32_t row0 = smem_addr(&s.t[0][0][on ? row : 0][j]);
+    constexpr uint32_t STAGE = 2 * PL;
+    for (int i = 0; i < ntiles; ++i) {
+        const int st = i % NS;
+        mbar_wait(&s.x_full[st], (i / NS) & 1);
+        const int n = min(TS, a.T - i * TS);           // a multiple of K
+        if (on) {
+            uint32_t at = row0 + st * STAGE;
+            float vr[N], vi[N], nr[N], ni[N];
+#pragma unroll
+            for (int q = 0; q < N; ++q) {
+                vr[q] = lds_f32<0>(at + 4 * L * q);
+                vi[q] = lds_f32<PL>(at + 4 * L * q);
+            }
+#pragma unroll 1
+            for (int u = 0; u < n; u += K, at += 4 * K) {
+                const uint32_t next = u + K < n ? at + 4 * K : at;
+#pragma unroll
+                for (int q = 0; q < N; ++q) {
+                    nr[q] = lds_f32<0>(next + 4 * L * q);
+                    ni[q] = lds_f32<PL>(next + 4 * L * q);
+                }
+                costas_slab_spread<K, L>(vr, vi, kf, phase, freq, op.alpha, op.beta,
+                                         op.freq_min, op.freq_max, op.nwrap);
+#pragma unroll
+                for (int q = 0; q < N; ++q) {
+                    sts_f32<0>(at + 4 * L * q, vr[q]);
+                    sts_f32<PL>(at + 4 * L * q, vi[q]);
+                    vr[q] = nr[q];
+                    vi[q] = ni[q];
+                }
+            }
+        }
+        mbar_arrive(&s.c_full[st]);
+    }
+    if (on && j == 0 && c0 + row < a.C) {
+        op.phase_out[c0 + row] = phase;
+        op.freq_out[c0 + row] = freq;
+    }
+}
+
+template <int K, int L>
+__global__ void __launch_bounds__(SpreadLayout<L>::WARPS * 32, 1)
+costas_spread_kernel(const Args a, const CostasSlabOp op) {
+    using SL = SpreadLayout<L>;
+    extern __shared__ __align__(16) unsigned char smem[];
+    Shared<2, SL::PITCH>& s = *reinterpret_cast<Shared<2, SL::PITCH>*>(smem);
+    if (threadIdx.x == 0) {
+        for (int k = 0; k < NS; ++k) {
+            mbar_init(&s.x_full[k], 32);
+            mbar_init(&s.c_full[k], 32 * SL::CHAINS);
+            mbar_init(&s.free_[k], 32);
+        }
+        mbar_init_fence();
+    }
+    __syncthreads();       // the last block-wide barrier: roles part here
+
+    Group g;
+    g.lane = threadIdx.x & 31;
+    g.c0 = blockIdx.x * CPB;
+    g.row = g.lane % CPB;
+    g.live = g.lane < CPB && g.c0 + g.lane < a.C;
+    g.cc = min(g.c0 + g.row, a.C - 1);
+    g.ntiles = (a.T + TS - 1) / TS;
+    const int role = threadIdx.x >> 5;
+    const long long role_t0 = role_clock_start();
+    const int chain = SL::chain(role);
+    if (role == LOADER) load_tiles(a, s, g);
+    else if (role == STORE) store_tiles(a, s, g);
+    else if (chain >= 0) spread_chain<K, L>(a, op, s, chain, g.c0, g.ntiles);
+    role_clock_stop(role_t0);
+}
+
+template <int K>
+static int launch_spread(const Args& a, const CostasSlabOp& op, void* stream) {
+    constexpr int L = K < SLAB_LPC ? K : SLAB_LPC;
+    using SL = SpreadLayout<L>;
+    const int shared = (int)sizeof(Shared<2, SL::PITCH>);
+    int err = (int)cudaFuncSetAttribute(
+        costas_spread_kernel<K, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err) return err;
+    costas_spread_kernel<K, L><<<(a.C + CPB - 1) / CPB, SL::WARPS * 32, shared,
+                                 (cudaStream_t)stream>>>(a, op);
+    return (int)cudaGetLastError();
+}
+
 template <bool CLAMP>
 static int launch_agc(const Args& a, const void* gain_in, void* gain_out,
                       float rate, float reference, float max_gain, void* stream) {
@@ -417,5 +549,10 @@ extern "C" int xrit_costas_slab(
     op.alpha = alpha; op.beta = beta; op.freq_min = freq_min; op.freq_max = freq_max;
     op.K = K; op.nwrap = nwrap;
     op.st = CostasSlab{0.0f, 0.0f, 0.0f, 0.0f, 0};
+    switch (K) {
+        case 4: return launch_spread<4>(a, op, stream);
+        case 8: return launch_spread<8>(a, op, stream);
+        case 16: return launch_spread<16>(a, op, stream);
+    }
     return launch(a, op, stream);
 }

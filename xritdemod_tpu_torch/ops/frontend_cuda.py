@@ -9,16 +9,18 @@ the same with the slab update on one loop only (`block_stages="agc"`: the
 slab AGC and the exact Costas loop; `"costas"`: the exact AGC and the slab
 Costas loop; `"both"`, the default, slabs both), and the bf16 matched filter
 (`precision="bf16"`: each AGC output and tap rounded to bfloat16 before its
-product, products and sums in float32).  One kernel template,
-`frontend_kernel<TR, SLAB_AGC, SLAB_COSTAS, BF16>`; `launches` counts the
-exact form, `launches_form[(block_k, block_stages, precision)]` each of the
+product, products and sums in float32).  Two kernel templates in
+`csrc/frontend.cu`: `frontend_kernel<48, false, false, BF16>` for the exact
+recursions (float32 and bf16) and `frontend_slab_kernel<TR, SLAB_AGC,
+SLAB_COSTAS, BF16, SK>` for every slab form; `launches` counts the exact
+form, `launches_form[(block_k, block_stages, precision)]` each of the
 others (`block_stages` "both" where `block_k` is 0).
-The kernel is `csrc/frontend.cu`: one launch, one block per 32 channels,
-whose warps are the stages of a pipeline over shared-memory tiles (loader,
-magnitudes, AGC gain chain, six FIR warps, Costas chain, store), handed on
-through `mbarrier`s.  The RRC product is the kernel's own code, taps in
-ascending order; no scratch tensor lies between the stages and the new FIR
-history is an output of the kernel.
+One launch, one block per 32 channels (the exact form) or 16 (the slab
+forms), whose warps are the stages of a pipeline over shared-memory tiles
+(loader, magnitudes, AGC gain chain, six FIR warps, Costas chain, store),
+handed on through `mbarrier`s.  The RRC product is the kernel's own code,
+taps in ascending order; no scratch tensor lies between the stages and the
+new FIR history is an output of the kernel.
 
 What bounds it on an H100: by bytes the work is small (the block is read
 once and written once).  The time is the length of one channel's Costas
@@ -26,9 +28,13 @@ recursion, T dependent steps on one warp; the design takes all other work
 off that warp and off its scheduler, so the kernel runs at the pace of that
 chain alone.
 
-With `block_k` K the two chains walk a slab, not a sample: the AGC warp's
-prefix is log2 K passes over the slab (K log2 K operations), the Costas
-warp's K rotations are independent of each other.  The tile holds whole
+With `block_k` K the two chains walk a slab, not a sample, and the FIR's
+issue sets the time; so the slab kernel serves 16 channels a block (twice
+the SMs for the FIR; each warp's two halves take the two planes), computes
+each slab's AGC prefix (log2 K passes, the clamp's running minimum) in the
+magnitude warp, off the gain chain, which then takes one clamped affine
+step a slab, and at K = 8 spreads a slab's rotations over two lanes a
+channel (`csrc/loops.cuh::costas_slab_spread`).  The tile holds whole
 slabs: 48 samples where K divides 48, 64 (eight FIR warps) where K divides
 64; other K raise on the card.
 
@@ -53,7 +59,8 @@ from xritdemod_tpu_torch.ops.costas import (
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = ["demod_frontend", "demod_frontend_plain", "trig_mismatches", "launches",
-           "launches_form", "PRECISIONS", "BLOCK_STAGES", "roles", "tile_rows"]
+           "launches_form", "PRECISIONS", "BLOCK_STAGES", "roles", "tile_rows",
+           "large_trig_mismatches"]
 
 launches = 0          # the exact form
 launches_form: dict = {}   # the slab and bf16 forms, by (block_k, block_stages, precision)
@@ -82,12 +89,13 @@ def tile_rows(block_k: int) -> int:
 
 
 def roles(block_k: int = 0, block_stages: str = "both") -> tuple:
-    """The kernel's warps in order of warp index (`Layout` of
-    csrc/frontend.cu), for the instance of `block_k` and `block_stages`;
-    None for a warp that leaves at once.  Names the rows of a stage-clock
-    read.  The Costas warp has warp 3, and so scheduler 3, to itself; the
-    AGC warp sits among the FIR warps, and with both slabs beside the Costas
-    warp (warp 7)."""
+    """The kernel's warps in order of warp index (`Layout` and
+    `SlabLayout` of csrc/frontend.cu), for the instance of `block_k` and
+    `block_stages`; None for a warp that leaves at once.  Names the rows of
+    a stage-clock read.  Beside an exact Costas chain the Costas warp has
+    warp 3, and so scheduler 3, to itself and the AGC warp sits among the
+    FIR warps; beside the Costas slab walk the gain chain takes warp 7 and
+    the magnitudes three warps (Layout's, its AGC slot, warp 11)."""
     _check_stages(block_stages)
     fir = tile_rows(block_k) // 8
     out, n = [], 0
@@ -99,10 +107,11 @@ def roles(block_k: int = 0, block_stages: str = "both") -> tuple:
         else:
             out.append(names[n])
             n += 1
-    if block_k and block_stages == "both":
-        out = [None if r == "agc" else r for r in out]
-        out[7] = "agc"
+    if block_k and block_stages != "agc":
+        out[out.index("agc")] = "mag"
+        out[7], out[11] = "agc", "mag"
     return tuple(out)
+
 
 
 ROLES = roles(0)
@@ -222,6 +231,30 @@ def trig_mismatches(lo: float, hi: float, n: int, device) -> int:
         err = fn(_f32(lo), _f32(hi), int(n), bad.data_ptr(),
                  stream)
     _build.check(err, "xrit_trig_mismatches")
+    return int(bad.item())
+
+
+# The bits of the library's large-argument threshold (105615.0, SINCOS_SMALL)
+# and of +inf: every float with |x| >= 105615, infinities included, lies in
+# [LARGE_LO, LARGE_HI] or in the same range with the sign bit set.
+LARGE_LO, LARGE_HI = 0x47CE4780, 0x7F800000
+
+
+def large_trig_mismatches(device) -> int:
+    """How many floats with |x| >= 105615 (every one, both signs and the
+    infinities: ~1.87e9 arguments) give a sine or cosine in the slab
+    kernels' large-argument path (`csrc/loops.cuh::sincos_large_regs`) that
+    differs in any bit from the CUDA library's `sinf` / `cosf`.  Runs on the
+    card and synchronises: a check, not part of the receive path."""
+    fn = _build.load("frontend").xrit_large_trig_mismatches
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device=torch.device(device))
+    with _build.launch_on(bad) as stream:
+        for sign in (0, 0x80000000):
+            _build.check(fn(sign | LARGE_LO, (sign | LARGE_HI) + 1, bad.data_ptr(), stream),
+                         "xrit_large_trig_mismatches")
     return int(bad.item())
 
 

@@ -21,7 +21,11 @@ store warp (for the AGC also `x * gain`), handed on through `mbarrier`s.
 (the Pallas fused kernel's `block_k`, here on the split path's `(C, T)`
 layout): K rotations on the slab's frozen ramp, one loop update a slab
 (`csrc/loops.cuh`, shared with the fused front end); `launches_costas_slab`
-counts it.
+counts it.  For K 4, 8 and 16 it is `costas_spread_kernel`:
+a slab's rotations spread over `SLAB_LANES` lanes a channel (four chain
+warps, one a scheduler), the errors gathered by shuffles and summed in
+slab order on every lane; any other K walks a lane a channel
+(`stream_kernel<CostasSlabOp>`).
 
 The plain versions are `ops/agc.agc_block`, `ops/costas.costas_block` and
 `ops/costas.costas_block_update`; a CPU tensor takes them, a CUDA tensor
@@ -44,6 +48,7 @@ from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = [
     "ROLES",
+    "spread_roles",
     "agc_block_kernel",
     "costas_block_kernel",
     "launches_agc",
@@ -61,8 +66,27 @@ launches_costas_slab = 0
 ROLES = {
     "agc_block": ("loader", "mag", "store", "agc", "mag", "mag"),
     "costas_block": ("loader", None, "store", "costas"),
-    "costas_slab": ("loader", None, "store", "costas"),
 }
+# Lanes a channel of the slab form's spread instances (`SLAB_LPC` of
+# csrc/stream.cu; K = 4 takes 4).
+SLAB_LANES = 8
+
+
+def spread_roles(lanes: int) -> tuple:
+    """`costas_spread_kernel`'s warps with `lanes` lanes a channel
+    (`SpreadLayout`): 16 x lanes / 32 chain warps (at least one) at warps 3,
+    1, 4, 6, one a scheduler, beside the loader (warp 0) and the store
+    (warp 2)."""
+    chains = max(1, 16 * lanes // 32)
+    at = (3, 1, 4, 6)[:chains]
+    out = [None] * (4 if chains <= 2 else 7)
+    out[0], out[2] = "loader", "store"
+    for w in at:
+        out[w] = "costas"
+    return tuple(out)
+
+
+ROLES["costas_slab"] = spread_roles(SLAB_LANES)      # the K = 8 instance
 
 
 def _fn(name: str, nptr: int, nfloat: int, nint: int = 0):

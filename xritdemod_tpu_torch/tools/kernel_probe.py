@@ -1,15 +1,19 @@
 """Probe: what sets the time of the hand-written kernels: the front end
-(K1; also its slab forms on one loop, `frontend_bk8_agc` and
-`frontend_bk8_costas`, in other warp layouts), the clock (K2: its mmse
-instance `clock`, its sinc instance `clock_sinc`, and their block updates
-at K = 16, `clock_bu` and `clock_bu_sinc`), the Viterbi decoder (K3), the
-standalone AGC (K5) and Costas loop (K6).
+(K1; its slab forms at block_k 8 on both loops, `frontend_bk8` and
+`frontend_bk8_bf16`, and on one loop, `frontend_bk8_agc` and
+`frontend_bk8_costas`), the clock (K2: its mmse instance `clock`, its sinc
+instance `clock_sinc`, and their block updates at K = 16, `clock_bu` and
+`clock_bu_sinc`), the Viterbi decoder (K3), the standalone AGC (K5) and
+Costas loop (K6; its slab form at K = 8, `costas_slab`).
 
     python -m xritdemod_tpu_torch.tools.kernel_probe            # needs a GPU and nvcc
     python -m xritdemod_tpu_torch.tools.kernel_probe agc_block costas_block
     python -m xritdemod_tpu_torch.tools.kernel_probe clock clock_sinc clock_bu clock_bu_sinc \
         [--rounds N] [--baseline OTHER/clock.cu]
-    python -m xritdemod_tpu_torch.tools.kernel_probe frontend_bk8_agc frontend_bk8_costas
+    python -m xritdemod_tpu_torch.tools.kernel_probe frontend_bk8 frontend_bk8_bf16 \
+        frontend_bk8_agc frontend_bk8_costas [--rounds N] [--baseline OTHER/frontend.cu]
+    python -m xritdemod_tpu_torch.tools.kernel_probe costas_slab [--rounds N] \
+        [--baseline OTHER/stream.cu]
     python -m xritdemod_tpu_torch.tools.kernel_probe viterbi [--rounds N] [--baseline OTHER/viterbi.cu]
 
 Times the kernels named on the command line (all by default) at the
@@ -27,12 +31,14 @@ reverse order every other round, and ends with each one's median, least and
 most.
 
 K2's instances run at C = 2048 and at one channel (the serial path's and
-the apps' count), each variant at both, its symbols, valid mask and state
-against the shipped build's (`bits_equal`).  `--baseline PATH` with a clock
-source (the four entries of `csrc/clock.cu`, e.g. `git show
-<commit>:xritdemod_tpu_torch/csrc/clock.cu` saved under `build/`) times that
-source's build as one more variant of each K2 instance named, through the
-same wrapper, in the same rounds.
+the apps' count), each variant at both; every variant's outputs are held
+against the shipped build's (`bits_equal`; false for a cost probe).
+`--baseline PATH` with a clock, front-end or stream source (the entries of
+`csrc/clock.cu`, `csrc/frontend.cu` or `csrc/stream.cu` of another commit,
+e.g. that commit's `csrc/` saved under `build/`: its own headers beside it
+are the ones it includes) times that source's build as one more variant of
+each instance of that library named, through the same wrapper, in the same
+rounds; `--baseline` may be given once for each library.
 
 K3 runs on the windows the decoder makes of 2048 frames (8192 windows of
 2312 steps, the fused step's shape) and of 8 (128 of 770, a `StreamDecoder`
@@ -176,30 +182,54 @@ VARIANTS["clock_bu_sinc"] = {
 }
 VARIANTS["clock_bu"] = {"as shipped": ()}
 
-# K1 with the slab on one loop (block_k 8) where its warps sit: as shipped
-# the Costas warp has scheduler 3 to itself and the AGC warp sits among the
-# FIR warps.
-_AGC_WARP = ("AGC = SLAB_AGC && SLAB_COSTAS ? IDLE7\n"
-             "                                                       : off_costas_scheduler"
-             "(FIR_WARPS + 2),")
-_COSTAS_ROLE = "    else if (role == COSTAS) costas_chain<TR, SLAB_COSTAS>(a, s, g);"
-VARIANTS["frontend_bk8_agc"] = {
-    "as shipped": (),
-    "AGC slab warp beside the Costas chain (warp 7, scheduler 3)":
-        ((_AGC_WARP, "AGC = SLAB_AGC ? IDLE7 : off_costas_scheduler(FIR_WARPS + 2),"),),
+# K1's slab kernel (`frontend_slab_kernel`, block_k 8): where its warps sit
+# (as shipped the Costas warp has scheduler 3 to itself, the AGC and
+# magnitude warps sit among the FIR warps), where the AGC prefix runs, the
+# Costas walk's fast paths, and the FIR's cost.  Its channels a block (16)
+# are timed against another source through `--baseline` (e.g. one with 32).
+_FIR_OUT = (("for (int jb = 0; jb < blocks; ++jb) {", "for (int jb = 0; jb < 1; ++jb) {"),)
+_COSTAS_FAST = {
+    "Costas walk without its large-argument guard (cost probe)":
+        (("    if (fabsf(phase) < SLAB_SMALL_PHASE && fabsf(freq) < SLAB_SMALL_REACH / K) {",
+          "    if (true) {"),),
+    "Costas wraps stepped in a loop": (("constexpr int WRAP_AHEAD = 4;",
+                                        "constexpr int WRAP_AHEAD = 0;"),),
+    "Costas quadrant by float -> int -> float":
+        (("    if (SMALL || !(fabsf(x) >= SINCOS_SMALL)) sincos_reduced_fadd(x, sn, cs);",
+          "    if (SMALL || !(fabsf(x) >= SINCOS_SMALL)) sincos_reduced(x, sn, cs);"),),
 }
-VARIANTS["frontend_bk8_costas"] = {
+_K1_SLAB = {
     "as shipped": (),
-    "AGC chain beside the Costas slab walk (warp 7, scheduler 3)":
-        ((_AGC_WARP, "AGC = SLAB_AGC || SLAB_COSTAS ? IDLE7 "
-                     ": off_costas_scheduler(FIR_WARPS + 2),"),),
-    "AGC chain alone on scheduler 3, the Costas slab walk among the FIR warps":
-        ((_AGC_WARP, "AGC = SLAB_COSTAS && !SLAB_AGC ? COSTAS : SLAB_AGC && SLAB_COSTAS ? "
-                     "IDLE7 : off_costas_scheduler(FIR_WARPS + 2),"),
-         # The AGC warp's usual place, off scheduler 3, is the one after MAG.
-         (_COSTAS_ROLE, "    else if (role == (SLAB_COSTAS && !SLAB_AGC ? "
-                        "L::MAG + 1 : (int)COSTAS))\n"
-                        "        costas_chain<TR, SLAB_COSTAS>(a, s, g);")),
+    "1 magnitude warp":
+        (("#define SLAB_MAG_WARPS 3", "#define SLAB_MAG_WARPS 1"),),
+    "2 magnitude warps":
+        (("#define SLAB_MAG_WARPS 3", "#define SLAB_MAG_WARPS 2"),),
+    "gain chain among the FIR warps (Layout's AGC warp)":
+        (("#define SLAB_AGC_WARP IDLE7", "#define SLAB_AGC_WARP L::AGC"),),
+    "FIR products taken out (cost probe)": _FIR_OUT,
+}
+VARIANTS["frontend_bk8"] = {
+    **_K1_SLAB,
+    "AGC prefix on the gain chain (lanes 0-15), not in the magnitude warp":
+        (("#define SLAB_PREFIX_IN_MAG 1", "#define SLAB_PREFIX_IN_MAG 0"),),
+    **_COSTAS_FAST,
+}
+VARIANTS["frontend_bk8_bf16"] = dict(_K1_SLAB)
+VARIANTS["frontend_bk8_agc"] = {
+    **_K1_SLAB,
+    "AGC prefix on the gain chain (lanes 0-15), not in the magnitude warp":
+        (("#define SLAB_PREFIX_IN_MAG 1", "#define SLAB_PREFIX_IN_MAG 0"),),
+}
+VARIANTS["frontend_bk8_costas"] = {**_K1_SLAB, **_COSTAS_FAST}
+# K6-bk8 (`costas_spread_kernel`): lanes a channel, channels a block, the
+# walk's fast paths.
+VARIANTS["costas_slab"] = {
+    "as shipped": (),
+    "1 lane a channel": (("#define SLAB_LPC 8 ", "#define SLAB_LPC 1 "),),
+    "2 lanes a channel (1 chain warp)": (("#define SLAB_LPC 8 ", "#define SLAB_LPC 2 "),),
+    "4 lanes a channel (2 chain warps)": (("#define SLAB_LPC 8 ", "#define SLAB_LPC 4 "),),
+    "8 channels a block (2 chain warps)": (("#define CPB 16", "#define CPB 8"),),
+    **_COSTAS_FAST,
 }
 
 # The many-windows instance of the shipped rule and the other candidate for
@@ -221,10 +251,14 @@ VARIANTS["viterbi"] = {
 }
 
 # The library (`csrc/<name>.cu`) that holds each kernel.
-LIBRARY = {"frontend": "frontend", "frontend_bk8_agc": "frontend",
-           "frontend_bk8_costas": "frontend", "clock": "clock", "clock_sinc": "clock",
-           "clock_bu": "clock", "clock_bu_sinc": "clock",
-           "agc_block": "stream", "costas_block": "stream", "viterbi": "viterbi"}
+LIBRARY = {"frontend": "frontend", "frontend_bk8": "frontend", "frontend_bk8_bf16": "frontend",
+           "frontend_bk8_agc": "frontend", "frontend_bk8_costas": "frontend",
+           "clock": "clock", "clock_sinc": "clock", "clock_bu": "clock", "clock_bu_sinc": "clock",
+           "agc_block": "stream", "costas_block": "stream", "costas_slab": "stream",
+           "viterbi": "viterbi"}
+# The entry that marks a baseline source as that library's.
+_ENTRY = {"clock": "xrit_clock_sinc", "frontend": "xrit_frontend_form",
+          "stream": "xrit_costas_slab"}
 
 # K2's instances: (interpolator, chunk K); timed at C = CHANNELS and at one
 # channel (the serial path's and the apps' count).
@@ -279,21 +313,24 @@ def _baseline(path: str):
     return decode
 
 
-def _clock_baseline(path: str) -> ctypes.CDLL:
-    """The library of another clock source (the four entries of
-    `csrc/clock.cu`, the same arguments), built against this tree's headers;
-    `_build.using("clock", lib)` times it through the same wrapper."""
-    lib = _build.build_dir() / "variants" / "clock_baseline.so"
+def _library_baseline(path: str, library: str) -> ctypes.CDLL:
+    """The library of another source of `csrc/<library>.cu` (the same
+    entries and arguments): headers beside it first, then this tree's;
+    `_build.using(library, lib)` times it through the same wrapper."""
+    lib = _build.build_dir() / "variants" / f"{library}_baseline.so"
     lib.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-I", str(_build._CSRC), "-o", str(lib),
                     path], check=True)
     return ctypes.CDLL(str(lib))
 
 
-def _clock_bits(out) -> list:
-    """A K2 result as its tensors: symbols, valid mask, state."""
-    (sym, valid, st) = out
-    return [sym.re, sym.im, valid, st.mu, st.omega, st.ii, st.p.re, st.p.im, st.c.re, st.c.im]
+def _bits(out) -> list:
+    """A kernel's result as a flat list of its tensors (outputs and state)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _bits(o)]
+    return []
 
 
 def _same_bits(a: list, b: list) -> bool:
@@ -370,10 +407,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: no CUDA device; this probe runs on a GPU only")
     args = sys.argv[1:]
-    baseline, rounds = None, 1
-    if "--baseline" in args:
+    baselines, rounds = [], 1
+    while "--baseline" in args:
         i = args.index("--baseline")
-        baseline = args[i + 1]
+        baselines.append(args[i + 1])
         del args[i : i + 2]
     if "--rounds" in args:
         i = args.index("--rounds")
@@ -384,10 +421,17 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    # A baseline source is the Viterbi kernel's or the clock's.
-    clock_baseline = baseline is not None and "xrit_clock_sinc" in open(baseline).read()
+    # A baseline source is the clock's, the front end's, the stream
+    # kernels' or (with none of their entries) the Viterbi kernel's.
+    # A baseline source is the clock's, the front end's, the stream
+    # kernels' or (with none of their entries) the Viterbi kernel's; one of
+    # each library at most.
+    kinds = {}
+    for path in baselines:
+        text = open(path).read()
+        kinds[next((lib for lib, entry in _ENTRY.items() if entry in text), "viterbi")] = path
     if "viterbi" in kernels:
-        viterbi_probe(card, dev, None if clock_baseline else baseline, rounds)
+        viterbi_probe(card, dev, kinds.get("viterbi"), rounds)
         kernels = [k for k in kernels if k != "viterbi"]
         if not kernels:
             return
@@ -413,22 +457,23 @@ def main() -> None:
     xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())      # (C, T)
     launches = dict(
         frontend=front(), **{k: clock(*v) for k, v in CLOCKS.items()},
+        frontend_bk8=front(block_k=8), frontend_bk8_bf16=front(block_k=8, precision="bf16"),
         frontend_bk8_agc=front(block_k=8, block_stages="agc"),
         frontend_bk8_costas=front(block_k=8, block_stages="costas"),
         agc_block=lambda: stream_cuda.agc_block_kernel(xc, st.agc_gain, demod._agc),
         costas_block=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas),
+        costas_slab=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas, 8),
     )
-    old_clock = _clock_baseline(baseline) if clock_baseline else None
+    others = {lib: _library_baseline(path, lib) for lib, path in kinds.items() if lib in _ENTRY}
     for kernel in kernels:
         library = LIBRARY[kernel]
         libs = _build_variants(kernel)
-        if kernel in CLOCKS and old_clock is not None:
-            libs.append((f"baseline {baseline}", old_clock))
+        if library in others:
+            libs.append((f"baseline {kinds[library]}", others[library]))
         shapes = clock_shapes if kernel in CLOCKS else {(CHANNELS, BLOCK_LEN): False}
         runs = {shape: clock(*CLOCKS[kernel], one=True) if one else launches[kernel]
                 for shape, one in shapes.items()}
-        want = {shape: _clock_bits(run()) for shape, run in runs.items()} \
-            if kernel in CLOCKS else {}
+        want = {shape: _bits(run()) for shape, run in runs.items()}
         times: dict[str, list[float]] = {}
         for r in range(rounds):
             for what, lib in libs if r % 2 == 0 else libs[::-1]:
@@ -436,8 +481,8 @@ def main() -> None:
                     row = dict(kernel=kernel, round=r, variant=what, card=card, shape=list(shape))
                     with _build.using(library, lib):
                         row["ms"] = _time_ms(run)
-                        if r == 0 and shape in want:
-                            row["bits_equal"] = _same_bits(_clock_bits(run()), want[shape])
+                        if r == 0:
+                            row["bits_equal"] = _same_bits(_bits(run()), want[shape])
                     times.setdefault(f"{what} | {list(shape)}", []).append(row["ms"])
                     print(json.dumps(row), flush=True)
         if rounds > 1:
