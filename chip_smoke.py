@@ -621,21 +621,24 @@ def ragged_signal(T: int, C: int, rnd) -> CF32:
 
 
 # K2's instances as (interpolator, chunk): the exact mmse and sinc forms and
-# the sinc block update at the on-chip configuration's K.
-SLOW_CLOCKS = {"clock": ("mmse", 0), "clock_sinc": ("sinc", 0), "clock_bu_sinc": ("sinc", 16)}
+# both block updates at the on-chip configuration's K.
+SLOW_CLOCKS = {"clock": ("mmse", 0), "clock_sinc": ("sinc", 0), "clock_bu": ("mmse", 16),
+               "clock_bu_sinc": ("sinc", 16)}
 
 
 def check_slow_clock(demod: Demodulator, rnd) -> dict:
     """The clock kernel where channels of one group stand further apart than
-    its shared-memory ring spans (every second channel starts 700 samples
-    ahead; omega at both ends of its range), for each instance of
+    its shared-memory ring spans (every second channel starts 1500 samples
+    ahead, past the mmse block update's ring of 1024 rows; omega at both
+    ends of its range), for each instance of
     SLOW_CLOCKS: the lanes ahead must take their samples from device memory
     (counted), and the result must still be the plain version's (the sinc
-    instances' bit for bit)."""
+    instances' and the mmse block update's bit for bit; the mmse block
+    update through both of its entries, `(T, C)` and `(C, T)`)."""
     C, T = 40, 4000
     st = demod.init_state_batch(C).clock
     ii = st.ii.clone()
-    ii[1::2] += 700
+    ii[1::2] += 1500
     omega = st.omega.clone()
     lim = demod._clock.omega_relative_limit
     omega[::3] *= 1.0 + lim
@@ -644,18 +647,28 @@ def check_slow_clock(demod: Demodulator, rnd) -> dict:
     y = ragged_signal(T, C, rnd)
     S = T // 4 + 20
     out = {}
+    yc = CF32(y.re.t().contiguous(), y.im.t().contiguous())
     for name, (interp, K) in SLOW_CLOCKS.items():
-        clock_cuda.out_of_ring_symbols(DEV, reset=True)
-        k = clock_cuda.clock_recovery_block_kernel_batch_cl(y, st, demod._clock, S, interp, K)
-        taken = clock_cuda.out_of_ring_symbols(DEV, reset=True)
         p = clock_cuda.clock_recovery_block_plain_cl(y, st, demod._clock, S, interp, K)
-        err = max(clock_errs(k, p, f"{name} outside its ring"))
-        if taken <= 0:
-            fail(f"{name} outside its ring: the kernel never read a symbol from device memory")
-        if interp == "sinc" and err != 0.0:
-            fail(f"{name} outside its ring differs from its plain version: {err}")
-        out[name] = dict(symbols=int(k[1].sum()), symbols_from_device_memory=taken,
-                         max_abs_err=err)
+        entries = [("(T, C)", clock_cuda.clock_recovery_block_kernel_batch_cl, y)]
+        if name == "clock_bu":
+            entries.append(("(C, T)", clock_cuda.clock_recovery_block_kernel_batch, yc))
+        for entry, fn, x in entries:
+            what = f"{name} outside its ring, {entry}"
+            clock_cuda.out_of_ring_symbols(DEV, reset=True)
+            k = fn(x, st, demod._clock, S, interp, K)
+            taken = clock_cuda.out_of_ring_symbols(DEV, reset=True)
+            err = max(clock_errs(k, p, what))
+            if taken <= 0:
+                fail(f"{what}: the kernel never read a symbol from device memory")
+            if (interp == "sinc" or K) and err != 0.0:
+                fail(f"{what} differs from its plain version: {err}")
+            row = dict(symbols=int(k[1].sum()), symbols_from_device_memory=taken,
+                       max_abs_err=err)
+            if name in out:
+                out[name]["channels_first"] = row
+            else:
+                out[name] = row
     return dict(shape=[C, T], **out)
 
 
@@ -1466,9 +1479,9 @@ SLAB_SHAPES = RAGGED_SHAPES + ((1, 1000), (17, 480), (48, 96))
 K1_STAGE_FORMS = ("frontend", "frontend_bk8", "frontend_bk8_agc", "frontend_bk8_costas")
 K1_STAGE_KERNELS = K1_STAGE_FORMS + ("frontend_bk8_agc_bf16", "frontend_bk8_costas_bf16")
 K1_STAGE_ROUNDS = 5
-# K2's chunks; 64, `clock_bench`'s largest, reaches past the kernel's
-# shared-memory ring (a chunk spans ~K x 4.3 rows), so its symbols read from
-# device memory.
+# K2's chunks; the mmse block update's ring of 1024 rows holds a chunk's
+# windows at each, so even 64, `clock_bench`'s largest (a chunk spans ~K x
+# 4.3 rows), reads no symbol from device memory from ordinary states.
 RAGGED_K_CLOCK = (1, 4, 16, 64)
 
 
@@ -1588,14 +1601,17 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
     block length cut to a whole number of slabs for K1 and K6), two chained
     blocks, each version with its own state: K1 with the slabs of
     RAGGED_K_FRONT (float32, and bf16 at K = 8) and bf16 at K = 0; K6 with
-    RAGGED_K_FRONT; K2's block update at RAGGED_K_CLOCK, both interpolators;
-    the bf16 rings.  At K = 1 K6 and K2 must equal their exact instances
-    bit for bit."""
+    RAGGED_K_FRONT; K2's block update at RAGGED_K_CLOCK, both interpolators
+    (the mmse one through both entries, `(T, C)` and `(C, T)`, and from
+    these ordinary states with no symbol read from device memory); the bf16
+    rings.  At K = 1 K6 and K2 must equal their exact instances bit for
+    bit."""
     g = torch.Generator(device=DEV).manual_seed(SEED + 5)
     rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
     fe = (demod._agc, demod._rrc_taps, demod._costas)
     out = {"frontend_forms": 0.0, "frontend_stage_forms": 0.0, "costas_slab": 0.0,
            "clock_bu": 0.0, "clock_bu_sinc": 0.0, "k1_equal_to_exact": True}
+    from_memory = {"clock_bu": 0, "clock_bu_sinc": 0}
     forms = [(bk, "both", "highest") for bk in RAGGED_K_FRONT] + [
         (ONCHIP_K, "both", "bf16"), (0, "both", "bf16")] + [
         (bk, stages, prec) for stages in ("agc", "costas")
@@ -1647,20 +1663,30 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
         S = T // 4 + 20
         for interp, key in (("mmse", "clock_bu"), ("sinc", "clock_bu_sinc")):
             for K in RAGGED_K_CLOCK:
-                kc = pc = st.clock
+                kc = ct = pc = st.clock
                 for _ in range(2):
                     y = ragged_signal(T, C, rnd)
+                    clock_cuda.out_of_ring_symbols(DEV, reset=True)
                     k = clock_cuda.clock_recovery_block_kernel_batch_cl(
                         y, kc, demod._clock, S, interp, K)
+                    runs = [(k, kc, "(T, C)")]
+                    if interp == "mmse":
+                        yc = CF32(y.re.t().contiguous(), y.im.t().contiguous())
+                        runs.append((clock_cuda.clock_recovery_block_kernel_batch(
+                            yc, ct, demod._clock, S, interp, K), ct, "(C, T)"))
+                    from_memory[key] += clock_cuda.out_of_ring_symbols(DEV, reset=True)
                     p = clock_cuda.clock_recovery_block_plain_cl(y, pc, demod._clock, S, interp, K)
-                    out[key] = max(out[key], *clock_errs(k, p, f"ragged {key} K={K} {C} x {T}"))
-                    if K == 1:
-                        e = clock_cuda.clock_recovery_block_kernel_batch_cl(
-                            y, kc, demod._clock, S, interp)
-                        out["k1_equal_to_exact"] &= bool(
-                            torch.equal(e[0].re, k[0].re) and torch.equal(e[1], k[1])
-                            and same_state(e[2], k[2]))
+                    for r, r_st, entry in runs:
+                        out[key] = max(out[key], *clock_errs(
+                            r, p, f"ragged {key} K={K} {C} x {T}, {entry}"))
+                        if K == 1:
+                            e = clock_cuda.clock_recovery_block_kernel_batch_cl(
+                                y, r_st, demod._clock, S, interp)
+                            out["k1_equal_to_exact"] &= bool(
+                                torch.equal(e[0].re, r[0].re) and torch.equal(e[1], r[1])
+                                and same_state(e[2], r[2]))
                     kc, pc = k[2], p[2]
+                    ct = runs[-1][0][2]
     Cr, L, Sr, E = 5, 300, 77, 64
     fill = torch.tensor([0, 10, 150, 223, 290], dtype=torch.int32, device=DEV)
     ring = torch.where(torch.arange(L, device=DEV)[None, :] < fill[:, None], rnd(Cr, L),
@@ -1677,9 +1703,13 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
     out["ring_bf16"] = 0.0
     worst = max(v for k, v in out.items() if k != "k1_equal_to_exact")
     out["frontend_stage_forms_seconds"] = stage_s
+    out["clock_symbols_from_device_memory"] = from_memory
     if not worst <= 0.0 or not out["k1_equal_to_exact"]:
         fail(f"onchip ragged shapes: a new instance disagrees with its plain version or, at "
              f"K = 1, with its exact instance: {out}")
+    if from_memory["clock_bu"]:
+        fail(f"onchip ragged shapes: the mmse block update read {from_memory['clock_bu']} "
+             f"symbols from device memory at K in {RAGGED_K_CLOCK}; its ring holds them all")
     return out
 
 
@@ -1848,7 +1878,9 @@ def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> 
                     and same_state(e1[1], ex[1])):
                 fail("onchip: costas_slab at K = 1 differs from the exact instance")
             plain_ms = pms
-        ys.append(py)
+        # Contiguous (C, T), as K6 leaves it for the clock (the plain loop
+        # returns a view of its time-major buffers).
+        ys.append(CF32(py.re.contiguous(), py.im.contiguous()))
         kc, pc = kc2, pc2
     if not max(errs) <= 0.0:
         fail(f"onchip: costas_slab disagrees with its plain version: {errs}")
@@ -1868,8 +1900,11 @@ def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> 
     def ct_plain(y, st_, prm, slots, interp, chunk):
         return clock_recovery.clock_recovery_block_update_batch(y, st_, prm, slots, chunk, interp)
 
+    # The sinc block update's (C, T) entry transposes its input: on views of
+    # time-major copies, made here, that copy costs nothing in its time.
+    ys_tm = [CF32(y.re.t().contiguous().t(), y.im.t().contiguous().t()) for y in ys]
     rows.append(clock_row(
-        "clock_bu_sinc", ys, clock_cuda.clock_recovery_block_kernel_batch, "sinc",
+        "clock_bu_sinc", ys_tm, clock_cuda.clock_recovery_block_kernel_batch, "sinc",
         ONCHIP_CLOCK_K, ct_plain,
         f"block_update=True, chunk={ONCHIP_CLOCK_K}, interp_mode='sinc', (C, T)"))
     ct_mmse = clock_row(
@@ -1877,7 +1912,7 @@ def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> 
         ct_plain, "(C, T)")
     cl_row["split_shape"] = dict(entry="(C, T)", max_abs_err=ct_mmse["max_abs_err"],
                                  ms=ct_mmse["ms"], symbols=ct_mmse["symbols"])
-    del ys
+    del ys, ys_tm
 
     # The bf16 rings at (a)'s length: the clock's symbols onto rings with
     # random fills, a few set to overflow; then pops at random positions.
@@ -2044,8 +2079,9 @@ def clock_max_block_phase(cfg: DemodConfig, base: CF32, delays, smi: str) -> dic
     the same block and the plain clock over the same segments (the block
     update's chunk grid starting again at each) must give the
     `block_batch`'s soft symbols and `valid` bit for bit; K2 against that
-    plain clock at those segments, every output and carry.  The block
-    updates' launches are counted in the `block_batch` calls alone."""
+    plain clock at those segments, every output and carry (the block update
+    through both of its entries).  The block updates' launches are counted
+    in the `block_batch` calls alone."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
     x = make_block(base, delays, 0, gen)
@@ -2074,6 +2110,12 @@ def clock_max_block_phase(cfg: DemodConfig, base: CF32, delays, smi: str) -> dic
         k = clock_cuda.clock_recovery_block_kernel_batch_cl(*args)
         p, pms = once_ms(lambda: clock_cuda.clock_recovery_block_plain_cl(*args))
         errs = clock_errs(k, p, f"clock_max_block K={K}")
+        if K:
+            # The block update's (C, T) entry, which reads the block as it is.
+            yC = CF32(yT.re.t().contiguous(), yT.im.t().contiguous())
+            errs += clock_errs(clock_cuda.clock_recovery_block_kernel_batch(yC, *args[1:]), p,
+                               f"clock_max_block K={K}, (C, T)")
+            del yC
         if not (torch.equal(valid, p[1]) and torch.equal(soft, p[0].re)):
             fail(f"clock_max_block (K = {K}): block_batch's symbols or valid differ from the "
                  "plain chain's")
@@ -3260,12 +3302,13 @@ class _Stepper:
         self.state = self.fn(x, self.state)[-1]
 
 
-def kernel_frames(log: str, mangled: str) -> dict:
+def kernel_frames(log: str, mangled: str, param: str = "i") -> dict:
     """`ptxas -v`'s stack frame, spill stores and spill loads (bytes) of
-    every instance `<N>` of the kernel template `mangled`, by N."""
+    every instance `<N>` of the kernel template `mangled`, by N (`param`:
+    the template parameter's mangled type, "i" int, "b" bool)."""
     out = {}
     for n, frame, stores, loads in re.findall(
-            rf"Function properties for {mangled}ILi(\d+)EEv\S*\s+"
+            rf"Function properties for {mangled}IL{param}(\d+)EEv\S*\s+"
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", log):
         out[n] = [int(frame), int(stores), int(loads)]
     return out
@@ -3299,11 +3342,13 @@ def main() -> None:
     for name in _build.KERNELS:
         _build.load(name)
     k3 = kernel_frames(built["log"], "_Z14viterbi_kernel")
-    # K2 by instance: `clock_kernel` 0 mmse and 2 its block update,
-    # `clock_sinc_kernel` 1 sinc and 3 its block update.  The sinc
-    # instances' stack frame is the large-argument path of `sinf` and
-    # `sincos_exact` in their checked steps: no spill.
+    # K2 by instance: `clock_kernel` 0 mmse, `clock_bu_kernel` its block
+    # update on (T, C) (0) and (C, T) (1), `clock_sinc_kernel` 1 sinc and 3
+    # its block update.  The sinc instances' stack frame is the
+    # large-argument path of `sinf` and `sincos_exact` in their checked
+    # steps: no spill.
     k2 = kernel_frames(built["log"], "_Z12clock_kernel")
+    k2b = kernel_frames(built["log"], "_Z15clock_bu_kernel", "b")
     k2s = kernel_frames(built["log"], "_Z17clock_sinc_kernel")
     slabs = slab_frames(built["log"])
     # The host library of the apps' sample ring, built here, in this
@@ -3313,17 +3358,19 @@ def main() -> None:
     say("build", seconds=built["seconds"], built=built["built"],
         directory=str(_build.build_dir()), ptxas=[
             ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln],
-        viterbi_instances=k3, clock_instances=k2, clock_sinc_instances=k2s,
+        viterbi_instances=k3, clock_instances=k2, clock_bu_instances=k2b,
+        clock_sinc_instances=k2s,
         slab_instances=slabs,
         native_library=dict(loaded=native_ok, path=str(native.library_path()),
                             error=native.last_error(),
                             seconds=time.perf_counter() - t_native))
     if len(k3) != len(viterbi_cuda.LANES) or any(any(v) for v in k3.values()):
         fail(f"viterbi: every instance must build without stack frame or spill: {k3}")
-    if sorted(k2) != ["0", "2"] or sorted(k2s) != ["1", "3"] \
-            or any(v[1] or v[2] for v in [*k2.values(), *k2s.values()]) or k2["0"][0] or k2["2"][0]:
+    if sorted(k2) != ["0"] or sorted(k2b) != ["0", "1"] or sorted(k2s) != ["1", "3"] \
+            or any(v[1] or v[2] for v in [*k2.values(), *k2s.values()]) \
+            or any(any(v) for v in [*k2.values(), *k2b.values()]):
         fail(f"clock: every instance must build without spill, mmse without stack frame: "
-             f"{k2}, {k2s}")
+             f"{k2}, {k2b}, {k2s}")
     # K1's 16 slab instances, K6's three spread instances and its lane-a-channel one.
     if len(slabs) != 20 or any(any(v) for v in slabs.values()):
         fail(f"slab kernels: every instance must build without stack frame or spill: {slabs}")

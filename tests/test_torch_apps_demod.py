@@ -134,15 +134,32 @@ def test_demodulator_app_batch_pad_equals_serial(capture, demod_symbols):
     np.testing.assert_array_equal(padded, demod_symbols[1])
 
 
-def _rx_run(App, Frontend, cfg, dcfg, path, **kw):
+def _rx_run(App, Frontend, cfg, dcfg, path, drain=False, **kw):
+    """Run a receiver app on the capture; returns every byte its vchannel
+    port sent, and the app.  The collector is read once the server has
+    closed its connection at `stop` (everything sent before lies in the
+    socket by then).  `drain`: the app's `stop` first waits until its
+    server's queue is empty (the JAX package's server ends its loop at
+    `stop` and drops what the queue still holds, such as the final flush's
+    frames; while it runs it sends everything queued)."""
     app = App(cfg, dcfg, Frontend(path), block_len=8192, vchannel_port=0,
               statistics_port=0, **kw)
-    cols = [Collector(app.decoder_app.channel_dispatcher.bound_port, "vcdu", connect_s=10)]
+    server = app.decoder_app.channel_dispatcher
+    if drain:
+        stop = server.stop
+
+        def drained_stop():
+            until(server._q.empty)
+            stop()
+        server.stop = drained_stop
+    cols = [Collector(server.bound_port, "vcdu", connect_s=10)]
     cols[0].start()
     assert cols[0].connected.wait(10)
-    app.decoder_app.channel_dispatcher.start()
-    until(lambda: app.decoder_app.channel_dispatcher.num_clients() == 1)
+    server.start()
+    until(lambda: server.num_clients() == 1)
     app.run()
+    cols[0].join(30)
+    assert not cols[0].is_alive()
     return cols[0].data, app
 
 
@@ -151,11 +168,12 @@ def test_receiver_app_frames_against_jax(whole_capture):
     vchannel port, exact against the transmitted VCDUs, and counts as many
     frames as the JAX app; the JAX app's vchannel bytes are the same or a
     prefix of them (the JAX app stops its dispatchers right after the final
-    flush, and its server can drop that flush's frames from the wire; the
-    port's sends all it holds before it stops)."""
+    flush, and its server can drop that flush's frames from the wire: the
+    test lets its queue drain first; the port's sends all it holds before
+    it stops, with no such help)."""
     path, vcdus = whole_capture
     jv, japp = _rx_run(JReceiverApp, JCFileFrontend, JDemodConfig.lrit(sample_rate=RATE),
-                       JDecoderConfig(mode="lrit", frames_per_block=2), path)
+                       JDecoderConfig(mode="lrit", frames_per_block=2), path, drain=True)
     tv, tapp = _rx_run(ReceiverApp, CFileFrontend, DemodConfig.lrit(sample_rate=RATE),
                        DecoderConfig(mode="lrit", frames_per_block=2), path, device="cpu")
     assert len(jv) >= 892 and tv[: len(jv)] == jv

@@ -163,7 +163,6 @@ WARP_LAYOUTS = {
     "frontend_slab_exact_costas": (frontend_cuda.roles(8, "agc"), "costas"),
     "frontend_slab_exact_costas_tr64": (frontend_cuda.roles(64, "agc"), "costas"),
     "clock": (clock_cuda.ROLES["clock"], "chain"),
-    "clock_bu": (clock_cuda.ROLES["clock_bu"], "chain"),
     "agc_block": (stream_cuda.ROLES["agc_block"], "agc"),
     "costas_block": (stream_cuda.ROLES["costas_block"], "costas"),
 }
@@ -200,6 +199,26 @@ def test_sinc_chain_warps_have_a_scheduler_each(kernel):
     for w in range(chains):
         beside = [r for i, r in enumerate(roles) if i != w and i % 4 == w % 4]
         assert len(beside) <= 1 and "chain" not in beside
+
+
+def test_bu_chain_warps_have_a_scheduler_each():
+    """K2's mmse block update (`clock_bu_kernel` of csrc/clock.cu) serves
+    BU_CPB channels a block with BU_LPC lanes a channel: BU_CPB * BU_LPC /
+    32 chain warps, then the loader, as `ROLES` names them (the chain lanes
+    store their own symbols: no store warp).  No two chain warps share a
+    scheduler, and beside a chain warp sits at most the loader."""
+    src = (Path(clock_cuda.__file__).parents[1] / "csrc" / "clock.cu").read_text()
+    lpc = int(re.search(r"#define BU_LPC (\d+)", src).group(1))
+    cpb = int(re.search(r"#define BU_CPB (\d+)", src).group(1))
+    chains = cpb * lpc // 32
+    roles = clock_cuda.ROLES["clock_bu"]
+    assert roles == ("chain",) * chains + ("loader",)
+    assert "constexpr int BU_CPW = 32 / BU_LPC;" in src
+    assert "constexpr int BU_CHAINS = BU_CPB / BU_CPW;" in src
+    assert "constexpr int BU_WARPS = BU_CHAINS + 1;" in src
+    for w in range(chains):
+        beside = [r for i, r in enumerate(roles) if i != w and i % 4 == w % 4]
+        assert beside in ([], ["loader"])
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8])

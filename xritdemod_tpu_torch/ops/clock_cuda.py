@@ -15,17 +15,23 @@ independent of each other, `segments` the reference's time segments.
 What bounds it on an H100: the bytes are one read of the block and one
 write of the symbols, but each channel is a chain of ~T/sps dependent
 symbols whose next samples lie where the loop filter says, with only C
-threads in flight.  The mmse instances serve 32 channels a block with three
-warps: a loader keeps a 256-row ring of the group's samples in shared memory
-ahead of the walk (`cp.async`, `mbarrier`s), the chain warp (one lane a
+threads in flight.  The exact mmse instance serves 32 channels a block with
+three warps: a loader keeps a 256-row ring of the group's samples in shared
+memory ahead of the walk (`cp.async`, `mbarrier`s), the chain warp (one lane a
 channel) reads its eight samples and its tap row from shared memory, and a
 third warp writes the symbols out as coalesced rows.  The sinc instances,
 whose taps (a sine, a sine and cosine, sixteen divisions) lie on the chain,
 serve 16 channels a block with four chain warps, eight lanes a channel and
-one tap a lane, and the same loader and store warps (`ROLES`).  A lane whose
-position lies outside the ring (the clocks of one group may drift apart)
-reads that symbol's samples from device memory inside the kernel;
-`out_of_ring_symbols` counts those.
+one tap a lane, and the same loader and store warps (`ROLES`).  The mmse
+block update (`clock_bu_kernel`) serves 16 channels a block with four chain
+warps, eight lanes a channel, each lane interpolating its own slots of a
+chunk, so only the loop filter's running sums stay on the chain; its ring
+of 1024 rows holds a chunk's windows at every K up to 64 at the LRIT and
+HRIT rates (a larger K reads the rest from device memory), and it reads a
+`(C, T)` block as it is (the `(C, T)` entry hands it over with no
+transposed copy).  A lane whose position lies outside the ring (the clocks
+of one group may drift apart) reads that symbol's samples from device
+memory inside the kernel; `out_of_ring_symbols` counts those.
 
 The plain version is `ops/clock_recovery.clock_recovery_block_batch`; a CPU
 tensor takes it, a CUDA tensor takes the kernel.
@@ -70,11 +76,13 @@ launches_sinc = 0     # the sinc instance
 launches_bu = 0       # the block update, mmse
 launches_bu_sinc = 0  # the block update, sinc
 
-# Each instance's warps in order of warp index: the mmse instances' `enum
-# Role` of csrc/clock.cu; the sinc instances' SINC_CHAINS chain warps (one a
-# scheduler), then the loader and the store warp (clock_sinc_kernel).
+# Each instance's warps in order of warp index: the exact mmse instance's
+# `enum Role` of csrc/clock.cu; the mmse block update's BU_CHAINS chain warps
+# (one a scheduler), then its loader (clock_bu_kernel); the sinc instances'
+# SINC_CHAINS chain warps, then the loader and the store warp
+# (clock_sinc_kernel).
 _SINC_ROLES = ("chain",) * 4 + ("loader", "store")
-ROLES = {"clock": ("chain", "loader", "store"), "clock_bu": ("chain", "loader", "store"),
+ROLES = {"clock": ("chain", "loader", "store"), "clock_bu": ("chain",) * 4 + ("loader",),
          "clock_sinc": _SINC_ROLES, "clock_bu_sinc": _SINC_ROLES}
 
 # Per device: a one-element int32 tensor to which every launch adds the
@@ -96,13 +104,17 @@ def out_of_ring_symbols(device, reset: bool = False) -> int:
     return n
 
 
-_ENTRIES = {("mmse", False): "xrit_clock", ("sinc", False): "xrit_clock_sinc",
-            ("mmse", True): "xrit_clock_bu", ("sinc", True): "xrit_clock_sinc_bu"}
+# The entries by (interpolator, block update, channels first): only the mmse
+# block update reads a `(C, T)` block.
+_ENTRIES = {("mmse", False, False): "xrit_clock", ("sinc", False, False): "xrit_clock_sinc",
+            ("mmse", True, False): "xrit_clock_bu", ("sinc", True, False): "xrit_clock_sinc_bu",
+            ("mmse", True, True): "xrit_clock_bu_ct"}
 
 
-def _lib(interp: str, bu: bool):
-    fn = getattr(_build.load("clock"), _ENTRIES[interp, bu])
+def _lib(entry: str):
+    fn = getattr(_build.load("clock"), entry)
     if not fn.argtypes:
+        bu = "_bu" in entry
         fn.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_int] * 3
             + [ctypes.c_float] * 4 + [ctypes.c_int] * (2 if bu else 0) + [ctypes.c_void_p]
@@ -139,15 +151,60 @@ def clock_recovery_block_kernel_batch_cl(
     """Channels-last entry: `(T, C)` CF32 block (as the front end leaves it),
     `(C,)`-leading state.  Returns `(symbols (C, S) CF32, valid (C, S) bool,
     new_state)` — the contract of `clock_recovery_block_batch`, or with
-    `chunk` K > 0 of `clock_recovery_block_update_batch`."""
-    global launches, launches_sinc, launches_bu, launches_bu_sinc
+    `chunk` K > 0 of `clock_recovery_block_update_batch`.  The mmse block
+    update's ring of 1024 rows holds a chunk's windows for every K up to 64
+    at the LRIT and HRIT rates; a K whose windows span more reads the rest
+    from device memory, with the same values, slower, counted by
+    `out_of_ring_symbols`."""
     check_interp(interp)
+    K = _chunk(chunk)
+    if not x.re.is_cuda:
+        return clock_recovery_block_plain_cl(x, state, params, num_slots, interp, K, segments)
+    return _launch(x, False, state, params, num_slots, interp, K, segments)
+
+
+@torch.no_grad()
+def clock_recovery_block_kernel_batch(
+    x: CF32,
+    state: ClockRecoveryState,
+    params: ClockRecoveryParams,
+    num_slots: int,
+    interp: str = "mmse",
+    chunk: int = 0,
+    segments: int = 1,
+):
+    """`(C, T)` entry: drop-in for `clock_recovery_block_batch` (with
+    `chunk` K > 0: for `clock_recovery_block_update_batch`).  The mmse block
+    update reads the block as it is (its ring as in
+    `clock_recovery_block_kernel_batch_cl`); the other instances take it
+    transposed."""
+    check_interp(interp)
+    K = _chunk(chunk)
+    if not x.re.is_cuda:
+        return _plain(x, state, params, num_slots, interp, K, segments)
+    if interp == "mmse" and K:
+        return _launch(x, True, state, params, num_slots, interp, K, segments)
+    xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
+    return _launch(xT, False, state, params, num_slots, interp, K, segments)
+
+
+def _chunk(chunk: int) -> int:
     K = int(chunk)
     if K < 0:
         raise ValueError(f"chunk must be >= 0, got {K}")
-    if not x.re.is_cuda:
-        return clock_recovery_block_plain_cl(x, state, params, num_slots, interp, K, segments)
-    T, C = x.re.shape
+    return K
+
+
+def _launch(x: CF32, channels_first: bool, state: ClockRecoveryState,
+            params: ClockRecoveryParams, num_slots: int, interp: str, K: int, segments: int):
+    """One launch on a CUDA block, `(C, T)` with its `(C, NTAIL)` tail when
+    `channels_first` (the mmse block update only), else `(T, C)` with the
+    tail transposed to `(NTAIL, C)`."""
+    global launches, launches_sinc, launches_bu, launches_bu_sinc
+    if channels_first:
+        C, T = x.re.shape
+    else:
+        T, C = x.re.shape
     _, seg_rows = segment_rows(T, segments)
     S = int(num_slots)
     dev = x.re.device
@@ -162,8 +219,10 @@ def clock_recovery_block_kernel_batch_cl(
 
     f32 = lambda v: float(np.float32(v))
     xr, xi = x.re.contiguous(), x.im.contiguous()
-    tr = state.tail.re.t().contiguous()                  # (NTAIL, C)
-    ti = state.tail.im.t().contiguous()
+    if channels_first:
+        tr, ti = state.tail.re.contiguous(), state.tail.im.contiguous()     # (C, NTAIL)
+    else:
+        tr, ti = state.tail.re.t().contiguous(), state.tail.im.t().contiguous()   # (NTAIL, C)
     new = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=dev)
     sr, si = new(C, S), new(C, S)
     nvalid = new(C, dt=torch.int32)
@@ -185,14 +244,15 @@ def clock_recovery_block_kernel_batch_cl(
     ptrs = (ctypes.c_void_p * len(ins + outs))(*[t.data_ptr() for t in ins + outs])
     omega_lim = params.omega * params.omega_relative_limit
     bu = (K, seg_rows if segments > 1 else 0) if K else ()
+    entry = _ENTRIES[interp, bool(K), channels_first]
     with _build.launch_on(xr) as stream:
-        err = _lib(interp, bool(K))(
+        err = _lib(entry)(
             ctypes.cast(ptrs, ctypes.c_void_p), T, C, S,
             f32(params.omega), f32(omega_lim),
             f32(params.gain_omega), f32(params.gain_mu),
             *bu, stream,
         )
-    _build.check(err, _ENTRIES[interp, bool(K)])
+    _build.check(err, entry)
     if K:
         if interp == "mmse":
             launches_bu += 1
@@ -205,32 +265,15 @@ def clock_recovery_block_kernel_batch_cl(
         else:
             launches_sinc += 1
         valid = torch.arange(S, device=dev)[None, :] < nvalid[:, None]
+    if channels_first:
+        tail = CF32(xr[:, T - NTAIL :].contiguous(), xi[:, T - NTAIL :].contiguous())
+    else:
+        tail = CF32(xr[T - NTAIL :].t().contiguous(), xi[T - NTAIL :].t().contiguous())
     new_state = ClockRecoveryState(
         mu=mu_o, omega=om_o, ii=ii_o,
-        p=CF32(pr_o, pi_o), c=CF32(cr_o, ci_o),
-        tail=CF32(xr[T - NTAIL :].t().contiguous(), xi[T - NTAIL :].t().contiguous()),
+        p=CF32(pr_o, pi_o), c=CF32(cr_o, ci_o), tail=tail,
     )
     return CF32(sr, si), valid, new_state
-
-
-@torch.no_grad()
-def clock_recovery_block_kernel_batch(
-    x: CF32,
-    state: ClockRecoveryState,
-    params: ClockRecoveryParams,
-    num_slots: int,
-    interp: str = "mmse",
-    chunk: int = 0,
-    segments: int = 1,
-):
-    """`(C, T)` entry: drop-in for `clock_recovery_block_batch` (with
-    `chunk` K > 0: for `clock_recovery_block_update_batch`)."""
-    check_interp(interp)
-    if not x.re.is_cuda:
-        return _plain(x, state, params, num_slots, interp, int(chunk), segments)
-    xT = CF32(x.re.t().contiguous(), x.im.t().contiguous())
-    return clock_recovery_block_kernel_batch_cl(xT, state, params, num_slots, interp, chunk,
-                                                segments)
 
 
 # The least nonzero mu an unchecked step of the sinc instances can meet

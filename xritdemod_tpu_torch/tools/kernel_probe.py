@@ -31,8 +31,12 @@ reverse order every other round, and ends with each one's median, least and
 most.
 
 K2's instances run at C = 2048 and at one channel (the serial path's and
-the apps' count), each variant at both; every variant's outputs are held
-against the shipped build's (`bits_equal`; false for a cost probe).
+the apps' count), each variant at both; the mmse block update (`clock_bu`)
+also through its `(C, T)` entry and at C = 512 with K 16 and 64.  Every
+variant's outputs are held against the shipped build's (`bits_equal`;
+false for a cost probe).  A clock source whose mmse block update has no
+`(C, T)` entry (`xrit_clock_bu_ct`) takes the `(C, T)` run as the older
+wrapper made it: the block's two transposes, then the `(T, C)` entry.
 `--baseline PATH` with a clock, front-end or stream source (the entries of
 `csrc/clock.cu`, `csrc/frontend.cu` or `csrc/stream.cu` of another commit,
 e.g. that commit's `csrc/` saved under `build/`: its own headers beside it
@@ -180,7 +184,23 @@ VARIANTS["clock_bu_sinc"] = {
     "a ring of 8 chunks (256 rows)":
         (("constexpr int SINC_NCHUNK = 16;", "constexpr int SINC_NCHUNK = 8;"),),
 }
-VARIANTS["clock_bu"] = {"as shipped": ()}
+# K2's mmse block update (`clock_bu_kernel`): lanes a channel and slots a
+# lane, channels a block (with 32, two chain warps share each scheduler on
+# half the SMs, and a ring of 1024 rows does not fit in shared memory), how
+# often the ring's chunks are freed, the ring's rows (with 512, K = 64
+# reads device memory), the loader's copy width.
+VARIANTS["clock_bu"] = {
+    "as shipped": (),
+    "16 lanes a channel, 1 slot a lane (2 chain warps a scheduler)":
+        (("#define BU_LPC 8", "#define BU_LPC 16"), ("#define BU_SPL 2", "#define BU_SPL 1")),
+    "4 slots a lane (passes of 32 slots)": (("#define BU_SPL 2", "#define BU_SPL 4"),),
+    "32 channels a block (8 chain warps, 2 a scheduler) and a ring of 512 rows":
+        (("#define BU_CPB 16", "#define BU_CPB 32"),
+         ("constexpr int BU_SHIFT = 5;", "constexpr int BU_SHIFT = 4;")),
+    "chunks freed 4 behind the slowest channel": (("#define BU_FREE 8 ", "#define BU_FREE 4 "),),
+    "a ring of 512 rows": (("constexpr int BU_SHIFT = 5;", "constexpr int BU_SHIFT = 4;"),),
+    "4-byte copies into the ring": (("    a.vec = bases % 16 == 0", "    a.vec = false"),),
+}
 
 # K1's slab kernel (`frontend_slab_kernel`, block_k 8): where its warps sit
 # (as shipped the Costas warp has scheduler 3 to itself, the AGC and
@@ -261,9 +281,12 @@ _ENTRY = {"clock": "xrit_clock_sinc", "frontend": "xrit_frontend_form",
           "stream": "xrit_costas_slab"}
 
 # K2's instances: (interpolator, chunk K); timed at C = CHANNELS and at one
-# channel (the serial path's and the apps' count).
+# channel (the serial path's and the apps' count); the mmse block update
+# also through its `(C, T)` entry, and at C = 512 with K = 16 and K = 64.
 CLOCKS = {"clock": ("mmse", 0), "clock_sinc": ("sinc", 0), "clock_bu": ("mmse", 16),
           "clock_bu_sinc": ("sinc", 16)}
+BU_WIDE_C = 512
+
 
 # Frames per `CaduDecoder` call whose Viterbi windows the sweep times.
 SWEEP_FRAMES = (1, 8, 64, 256, 512, 1024, 2048, 4096, 8192, 16384)
@@ -454,6 +477,25 @@ def main() -> None:
             y1 if one else y, (st1 if one else st).clock, demod._clock, demod.num_slots,
             interp, chunk))
     clock_shapes = {(CHANNELS, BLOCK_LEN): False, (1, BLOCK_LEN): True}
+    # The mmse block update's other runs: the `(C, T)` entry on the same
+    # block, and C = BU_WIDE_C at K 16 and 64.
+    yc = CF32(y.re.t().contiguous(), y.im.t().contiguous())
+    yw = CF32(y.re[:, :BU_WIDE_C].contiguous(), y.im[:, :BU_WIDE_C].contiguous())
+    stw = demod.init_state_batch(BU_WIDE_C)
+    bu = lambda x_, st_, K: lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(
+        x_, st_.clock, demod._clock, demod.num_slots, "mmse", K)
+    ct_key = f"(C, T) entry, C = {CHANNELS}"
+    bu_runs = {
+        ct_key: lambda: clock_cuda.clock_recovery_block_kernel_batch(
+            yc, st.clock, demod._clock, demod.num_slots, "mmse", 16),
+        f"C = {BU_WIDE_C}, K = 16": bu(yw, stw, 16),
+        f"C = {BU_WIDE_C}, K = 64": bu(yw, stw, 64),
+    }
+    # The `(C, T)` run of a clock library without that entry, as the older
+    # wrapper made it: two transposes, then the `(T, C)` entry.
+    older_ct = lambda: clock_cuda.clock_recovery_block_kernel_batch_cl(
+        CF32(yc.re.t().contiguous(), yc.im.t().contiguous()), st.clock, demod._clock,
+        demod.num_slots, "mmse", 16)
     xc = CF32(x.re.t().contiguous(), x.im.t().contiguous())      # (C, T)
     launches = dict(
         frontend=front(), **{k: clock(*v) for k, v in CLOCKS.items()},
@@ -471,19 +513,23 @@ def main() -> None:
         if library in others:
             libs.append((f"baseline {kinds[library]}", others[library]))
         shapes = clock_shapes if kernel in CLOCKS else {(CHANNELS, BLOCK_LEN): False}
-        runs = {shape: clock(*CLOCKS[kernel], one=True) if one else launches[kernel]
+        runs = {str(list(shape)): clock(*CLOCKS[kernel], one=True) if one else launches[kernel]
                 for shape, one in shapes.items()}
-        want = {shape: _bits(run()) for shape, run in runs.items()}
+        if kernel == "clock_bu":
+            runs.update(bu_runs)
+        want = {key: _bits(run()) for key, run in runs.items()}
         times: dict[str, list[float]] = {}
         for r in range(rounds):
             for what, lib in libs if r % 2 == 0 else libs[::-1]:
-                for shape, run in runs.items():
-                    row = dict(kernel=kernel, round=r, variant=what, card=card, shape=list(shape))
+                for key, run in runs.items():
+                    if key == ct_key and not hasattr(lib, "xrit_clock_bu_ct"):
+                        run = older_ct
+                    row = dict(kernel=kernel, round=r, variant=what, card=card, shape=key)
                     with _build.using(library, lib):
                         row["ms"] = _time_ms(run)
                         if r == 0:
-                            row["bits_equal"] = _same_bits(_bits(run()), want[shape])
-                    times.setdefault(f"{what} | {list(shape)}", []).append(row["ms"])
+                            row["bits_equal"] = _same_bits(_bits(run()), want[key])
+                    times.setdefault(f"{what} | {key}", []).append(row["ms"])
                     print(json.dumps(row), flush=True)
         if rounds > 1:
             _spread(kernel, times, card)
