@@ -17,7 +17,10 @@ channel, its branch-free taps against the exact ones at every float mu in
 the slab walks' large-argument path at every float with |x| >= 105615;
 the plain recurrences run as replayed CUDA graphs, `ops/scan.py`,
 themselves held bit-equal to eager loops first; the banded-matmul FIR at the
-split path's shape against cuDNN and a float64 sum), then drives the paths at
+split path's shape against cuDNN and a float64 sum; the symbol ring's append
+and in-place extract, float32 and bf16, on the edges of their realignment
+and of the shift, bit for bit, and timed again at the main path's steady
+fills, `ring_steady`), then drives the paths at
 the shipped LRIT operating point,
 C = 2048 channels x 131072 samples per block, on synthesised captures:
 
@@ -536,13 +539,20 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
     kf[1::61] = E // 2
     kr[1::61, E // 2 :] = 0
     pos = torch.randint(0, E, (C,), generator=g).to(torch.int32).to(DEV)
-    kout = ring_cuda.ring_extract(kr, kf, pos, E)
-    pout, plain_ms = once_ms(lambda: ring_cuda.ring_extract_plain(kr, kf, pos, E))
+    # The extract works in place: each version on its own copy; the timed
+    # calls reuse one ring (a call's traffic depends only on fill and pos).
+    kin, pin = kr.clone(), kr.clone()
+    kout = ring_cuda.ring_extract(kin, kf, pos, E)
+    pout, plain_ms = once_ms(lambda: ring_cuda.ring_extract_plain(pin, kf, pos, E))
+    if kout[0].data_ptr() != kin.data_ptr():
+        fail(f"{where}: ring_extract did not hand back the ring it was given")
     if not all(torch.equal(a, b) for a, b in zip(kout, pout)):
         fail(f"{where}: ring_extract differs from its plain version")
     if bool(kout[3].all()) or not bool(kout[3].any()):
         fail(f"{where}: ring_extract check: wanted both ok and not-ok channels")
-    ms = time_ms(lambda: ring_cuda.ring_extract(kr, kf, pos, E), 10)
+    del kin, pin
+    scratch = kr.clone()
+    ms = time_ms(lambda: ring_cuda.ring_extract(scratch, kf, pos, E), 10)
     # Least traffic for these fills and positions: a channel that pops reads
     # the symbols it keeps and writes them at the front, zeroes the slots it
     # vacated up to its old fill; every channel reads and writes E symbols of
@@ -740,6 +750,70 @@ def check_trig() -> dict:
     return out
 
 
+RING_EDGE_LENS = (72064, 40001)    # the fused receive's ring; an odd one (rows at every alignment)
+RING_EDGE_S = (30983, 3001)        # new symbols a block: the main path's (odd), a short one
+
+
+def ring_edge_inputs(L: int, S: int, E: int, gen) -> dict:
+    """Channels on the edges of K4a's and K4b's realignment and of the
+    in-place shift, at ring length L, S new symbols, frame E.  Append: fills
+    at every residue mod 8 against counts at every residue mod 8 (S odd),
+    none and one symbol, a block that fits exactly and one that overflows by
+    a symbol.  Extract: pos 0 (drop = E) with 0-7 symbols kept, nothing kept
+    (fill == pos + E), more kept than pos (nf > pos), fill == L, positions
+    at every residue mod 8, and channels short of a frame (not ok)."""
+    r8 = list(range(8))
+    afill = [8 * 517 + r for r in r8] + [8 * 1001 + r for r in r8] + [0, 5, L - S, L - S + 1]
+    an = [S - q for q in r8] + [S - 8 - q for q in r8[::-1]] + [0, 1, S, S]
+    xcase = ([(0, E + r) for r in r8]                              # pos 0, drop = E
+             + [(p, p + E) for p in (0, 3, 8, 1001)]               # nothing kept
+             + [(5 + r, 5 + r + E + 20000 + 3 * r) for r in r8]    # nf > pos
+             + [(3 * r, L) for r in r8]                            # fill == L
+             + [(p, min(L, p + E + 4999)) for p in range(1, 9)]    # pos at every residue
+             + [(0, E - 1), (0, 0), (7, 100), (40, E + 39)])       # not ok
+    C = max(len(afill), len(xcase))
+    pad = lambda v, x: (v + [x] * C)[:C]
+    t = lambda v: torch.tensor(v, dtype=torch.int32, device=DEV)
+    return dict(afill=t(pad(afill, 0)), an=t(pad(an, 0)), new=torch.randn(
+        (C, S), generator=gen).to(DEV), xpos=t(pad([p for p, _ in xcase], 0)),
+        xfill=t(pad([f for _, f in xcase], 0)), vals=torch.randn((C, L), generator=gen).to(DEV))
+
+
+def check_ring_edges(dtype) -> float:
+    """K4a and K4b on `ring_edge_inputs` at both RING_EDGE_LENS, on `dtype`
+    rings, against their plain versions: `torch.equal` on the ring (its
+    bits), fill, flags and pop; a channel not ok keeps its row byte for
+    byte; the extract hands back the tensor it was given.  Returns 0.0
+    (any difference fails the run)."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    E = K.CODED_FRAME_SIZE
+    bits = lambda t: t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    same = lambda a, b: all(torch.equal(bits(x) if x.is_floating_point() else x,
+                                        bits(y) if y.is_floating_point() else y)
+                            for x, y in zip(a, b))
+    for L, S in zip(RING_EDGE_LENS, RING_EDGE_S):
+        d = ring_edge_inputs(L, S, E, gen)
+        lane = torch.arange(L, device=DEV)[None, :]
+        what = f"{str(dtype).replace('torch.', '')} ring edges, L = {L}, S = {S}"
+        ring = torch.where(lane < d["afill"][:, None], d["vals"], 0.0).to(dtype)
+        ka = ring_cuda.ring_append(ring.clone(), d["afill"], d["new"], d["an"])
+        pa = ring_cuda.ring_append_plain(ring.clone(), d["afill"], d["new"], d["an"])
+        if not same(ka, pa):
+            fail(f"{what}: ring_append differs from its plain version")
+        ring = torch.where(lane < d["xfill"][:, None], d["vals"], 0.0).to(dtype)
+        kin = ring.clone()
+        ke = ring_cuda.ring_extract(kin, d["xfill"], d["xpos"], E)
+        pe = ring_cuda.ring_extract_plain(ring.clone(), d["xfill"], d["xpos"], E)
+        if ke[0].data_ptr() != kin.data_ptr():
+            fail(f"{what}: ring_extract did not hand back the ring it was given")
+        if not same(ke, pe):
+            fail(f"{what}: ring_extract differs from its plain version")
+        held = ~ke[3]
+        if not held.any() or not torch.equal(bits(ke[0][held]), bits(ring[held])):
+            fail(f"{what}: a channel short of a frame was not left as it was")
+    return 0.0
+
+
 def check_ragged(rx: FusedReceiver) -> dict:
     """The kernels against their plain versions at small sizes that are no
     multiple of any tile (see RAGGED_SHAPES), where a wrong edge guard would
@@ -786,11 +860,11 @@ def check_ragged(rx: FusedReceiver) -> dict:
     ka = ring_cuda.ring_append(ring.clone(), fill, new, n_new)
     pa = ring_cuda.ring_append_plain(ring.clone(), fill, new, n_new)
     pos = torch.randint(0, 40, (Cr,), generator=cpu).to(torch.int32).to(DEV)
-    ke = ring_cuda.ring_extract(ka[0], ka[1], pos, E)
-    pe = ring_cuda.ring_extract_plain(pa[0], pa[1], pos, E)
+    ke = ring_cuda.ring_extract(ka[0].clone(), ka[1], pos, E)
+    pe = ring_cuda.ring_extract_plain(pa[0].clone(), pa[1], pos, E)
     if not all(torch.equal(a, b) for a, b in zip(ka + ke, pa + pe)):
         fail("ragged ring differs from its plain version")
-    out["ring"] = 0.0
+    out["ring"] = check_ring_edges(torch.float32)
 
     # The standalone stages on (C, T), against `agc_block` / `costas_block`:
     # two chained blocks of every shape, each version carrying its own state;
@@ -1091,14 +1165,15 @@ def same_state(a, b) -> bool:
 def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
               blocks: int = BLOCKS, int8_blocks: int = INT8_BLOCKS, label: str = "main_path",
               expected: tuple = MAIN_PATH_KERNELS, cl_block: int | None = None,
-              per_block: list | None = None):
+              per_block: list | None = None, fills: list | None = None):
     """`blocks` blocks through `step`, then `int8_blocks` through
     `step_int8`, every popped frame held against what was transmitted; the
     path must launch the `expected` kernels and no other.  With `cl_block`,
     that block also goes through `step_cl`, as a transposed `(T, C)` copy
     from a copy of the same state, which must give the same outputs and
     state as `step`, bit for bit.  A list passed as `per_block` receives the
-    frames recovered in each block."""
+    frames recovered in each block, one passed as `fills` the rings' fill
+    counts after each block."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     by_counter = [
         {1000 * (s + 1) + i: v[i].tobytes() for i in range(len(v))}
@@ -1144,6 +1219,8 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
                       frames=int(out_cl[0].frame_ok.sum()))
             del out_cl
         overflow |= bool(ovf.any())
+        if fills is not None:
+            fills.append(state.fill.clone())
         fok = batch.frame_ok.cpu().numpy()
         vcid, ctr = batch.vcid.cpu().numpy(), batch.counter.cpu().numpy()
         vc = batch.vcdu.cpu().numpy()
@@ -1596,6 +1673,72 @@ def check_slab_edges(demod: Demodulator) -> dict:
     return out
 
 
+# K1 under another stream's load: channel counts whose last block of channels
+# is part-filled, block lengths that are whole slabs of every form below,
+# and the forms: the exact ones and the slab kernel's instances (both loops,
+# the Costas loop alone; the spread walk at K = 8, a lane a channel at K = 1;
+# tiles of 48 and 64 rows).
+LOAD_SHAPES = ((3, 960), (70, 960))
+LOAD_FORMS = ((0, "both", "highest"), (0, "both", "bf16"), (1, "costas", "highest"),
+              (8, "both", "highest"), (8, "both", "bf16"), (8, "costas", "bf16"),
+              (64, "both", "highest"))
+LOAD_REPS = 24
+
+
+def check_frontend_under_load(demod: Demodulator) -> dict:
+    """K1's LOAD_FORMS, each launched LOAD_REPS times on one input while a
+    side stream keeps the card busy with matrix products, against one run of
+    its plain version, bit for bit (`torch.equal` on every output).  A
+    hazard between a block's warps shows only when their timing varies: an
+    unordered write to the FIR ring's first rows changed 29 of these 336
+    launches on an H100, where the ragged checks on an idle card mostly
+    passed."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 17)
+    rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
+    fe = (demod._agc, demod._rrc_taps, demod._costas)
+    stop = threading.Event()
+
+    def load() -> None:
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            a = torch.rand(4096, 4096, device=DEV)
+            while not stop.is_set():
+                for _ in range(4):
+                    a = torch.tanh(a @ a)
+                side.synchronize()
+
+    t0 = time.perf_counter()
+    # The plain versions first: their recurrences are captured as CUDA
+    # graphs, which another stream's work would invalidate.
+    cases = []
+    for C, T in LOAD_SHAPES:
+        st = demod.init_state_batch(C)
+        for bk, stages, prec in LOAD_FORMS:
+            s = (st.agc_gain + rnd(C).abs(), CF32(rnd(C, 62), rnd(C, 62)), st.costas)
+            x = ragged_signal(T, C, rnd)
+            form = dict(block_k=bk, precision=prec, block_stages=stages)
+            p = _flat(frontend_cuda.demod_frontend_plain(x, *s, *fe, **form))
+            cases.append(([C, T, bk, stages, prec], x, s, form, p))
+    worker = threading.Thread(target=load)
+    worker.start()
+    launches, differing = 0, []
+    try:
+        for case, x, s, form, p in cases:
+            for _ in range(LOAD_REPS):
+                k = _flat(frontend_cuda.demod_frontend(x, *s, *fe, **form))
+                launches += 1
+                if not all(torch.equal(a, b) for a, b in zip(k, p)):
+                    differing.append(case)
+    finally:
+        stop.set()
+        worker.join()
+    if differing:
+        fail(f"onchip: K1 under load differs from its plain version in {len(differing)} of "
+             f"{launches} launches: {differing[:8]}")
+    return dict(shapes=LOAD_SHAPES, forms=len(LOAD_FORMS), launches=launches,
+                differing=0, seconds=time.perf_counter() - t0)
+
+
 def check_onchip_ragged(demod: Demodulator) -> dict:
     """The new instances against their plain versions on RAGGED_SHAPES (each
     block length cut to a whole number of slabs for K1 and K6), two chained
@@ -1696,11 +1839,11 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
     ka = ring_cuda.ring_append(ring.clone(), fill, new, n_new)
     pa = ring_cuda.ring_append_plain(ring.clone(), fill, new, n_new)
     pos = torch.tensor([3, 0, 17, 40, 2], dtype=torch.int32, device=DEV)
-    ke = ring_cuda.ring_extract(ka[0], ka[1], pos, E)
-    pe = ring_cuda.ring_extract_plain(pa[0], pa[1], pos, E)
+    ke = ring_cuda.ring_extract(ka[0].clone(), ka[1], pos, E)
+    pe = ring_cuda.ring_extract_plain(pa[0].clone(), pa[1], pos, E)
     if not all(torch.equal(a, b) for a, b in zip(ka + ke, pa + pe)):
         fail("onchip: the ragged bf16 ring differs from its plain version")
-    out["ring_bf16"] = 0.0
+    out["ring_bf16"] = check_ring_edges(torch.bfloat16)
     worst = max(v for k, v in out.items() if k != "k1_equal_to_exact")
     out["frontend_stage_forms_seconds"] = stage_s
     out["clock_symbols_from_device_memory"] = from_memory
@@ -1945,13 +2088,18 @@ def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> 
     kf[1::61] = E // 2
     kr[1::61, E // 2:] = 0
     pos = torch.randint(0, E, (C,), generator=gcpu).to(torch.int32).to(DEV)
-    kout = ring_cuda.ring_extract(kr, kf, pos, E)
-    pout, plain_ms = once_ms(lambda: ring_cuda.ring_extract_plain(kr, kf, pos, E))
+    kin, pin = kr.clone(), kr.clone()      # in place: each version on its own copy
+    kout = ring_cuda.ring_extract(kin, kf, pos, E)
+    pout, plain_ms = once_ms(lambda: ring_cuda.ring_extract_plain(pin, kf, pos, E))
+    if kout[0].data_ptr() != kin.data_ptr():
+        fail("onchip: ring_extract did not hand back the bf16 ring it was given")
     if not all(torch.equal(a, b) for a, b in zip(kout, pout)):
         fail("onchip: ring_extract on a bf16 ring differs from its plain version")
     if bool(kout[3].all()) or not bool(kout[3].any()):
         fail("onchip: ring_extract check: wanted both ok and not-ok channels")
-    ms = time_ms(lambda: ring_cuda.ring_extract(kr, kf, pos, E), 10)
+    del kin, pin
+    scratch = kr.clone()
+    ms = time_ms(lambda: ring_cuda.ring_extract(scratch, kf, pos, E), 10)
     okc = kout[3]
     kept = int(kout[1][okc].sum())
     bms, by = bound(2 * (kept + int(kf[okc].sum())) + 6 * C * E + 16 * C, 0.0)
@@ -1961,6 +2109,65 @@ def check_onchip_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, exact: dict) -> 
         max_abs_err=0.0, tolerance="exact", ms=ms, exact_ms=exact["ring_extract"]["ms"],
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None))
     return rows
+
+
+RING_STEADY_BLOCK = 3      # the main path's block after which the steady rows take its fills
+
+
+def ring_steady(rows: list, fill: torch.Tensor, L: int, S: int, n: int) -> dict:
+    """K4a and K4b, float32 and bf16, at the main path's steady state: its
+    rings' fills after block RING_STEADY_BLOCK; the append of n symbols a
+    channel there (the clock's count a block), then the extract the next
+    block's first pop makes, at pos 0 from fill + n.  Each against its plain
+    version (`torch.equal` on ring, fill, flags and pop), then timed as the
+    kernel rows are; adds `steady` (ms, bound; for the extract also what a
+    call allocates, its `out` and no second ring) to the four rows.  Launches
+    here come after every path's counts were read."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    C, E = fill.shape[0], K.CODED_FRAME_SIZE
+    new = torch.randn((C, S), generator=gen).to(DEV)
+    n_new = torch.full((C,), n, dtype=torch.int32, device=DEV)
+    pos = torch.zeros_like(fill)
+    lane = torch.arange(L, device=DEV)[None, :]
+    vals = torch.randn((C, L), generator=gen).to(DEV)
+    by_name = {r["name"]: r for r in rows}
+    out = dict(fills_min=int(fill.min()), fills_max=int(fill.max()),
+               fills_mean=float(fill.float().mean()), n_new=n)
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        width = 4 if dtype == torch.float32 else 2
+        ring = torch.where(lane < fill[:, None], vals, 0.0).to(dtype)
+        ka = ring_cuda.ring_append(ring.clone(), fill, new, n_new)
+        pa = ring_cuda.ring_append_plain(ring.clone(), fill, new, n_new)
+        if not all(torch.equal(a, b) for a, b in zip(ka, pa)):
+            fail(f"ring_append{suffix} at the steady fills differs from its plain version")
+        scratch = ring.clone()
+        ms = time_ms(lambda: ring_cuda.ring_append(scratch, fill, new, n_new), 10)
+        moved = int(n_new[~ka[2]].sum())
+        bms, _ = bound((4 + width) * moved + 16 * C, 0.0)
+        by_name["ring_append" + suffix]["steady"] = dict(ms=ms, bound_ms=bms)
+        f2, base = ka[1], ka[0]
+        kin = base.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        ke = ring_cuda.ring_extract(kin, f2, pos, E)
+        allocated = torch.cuda.max_memory_allocated() - m0     # `out` only: no second ring
+        pe = ring_cuda.ring_extract_plain(base.clone(), f2, pos, E)
+        if ke[0].data_ptr() != kin.data_ptr() or not all(
+                torch.equal(a, b) for a, b in zip(ke, pe)):
+            fail(f"ring_extract{suffix} at the steady fills differs from its plain version")
+        del kin, ke, pe, scratch
+        scratch = base.clone()
+        ms = time_ms(lambda: ring_cuda.ring_extract(scratch, f2, pos, E), 10)
+        pok = f2 >= E
+        bms, _ = bound(width * (int((f2 - E)[pok].sum()) + int(f2[pok].sum()))
+                       + (width + 4) * C * E + 16 * C, 0.0)
+        by_name["ring_extract" + suffix]["steady"] = dict(
+            ms=ms, bound_ms=bms, ok_channels=int(pok.sum()), allocated_bytes=allocated)
+        out[f"ring_append{suffix}"] = by_name["ring_append" + suffix]["steady"]
+        out[f"ring_extract{suffix}"] = by_name["ring_extract" + suffix]["steady"]
+        del ring, ka, pa, base, scratch
+    return out
 
 
 def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdus,
@@ -2037,6 +2244,7 @@ def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdu
     torch.cuda.empty_cache()
     ragged = check_onchip_ragged(main["rx"]._demod)
     edges = check_slab_edges(main["rx"]._demod)
+    loaded = check_frontend_under_load(main["rx"]._demod)
     c_s = time.perf_counter() - t2
 
     steady = float(np.mean(oms[1:ONCHIP_BLOCKS]))
@@ -2056,7 +2264,7 @@ def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdu
                       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                       max_abs_err=r["max_abs_err"]) for r in rows],
         ragged_shapes_max_abs_err=ragged, slab_edge_states_max_abs_err=edges,
-        checks_seconds=c_s,
+        frontend_under_load=loaded, checks_seconds=c_s,
         seconds=time.perf_counter() - t0)
     say("k1_forms", card=smi, **k1_forms)
     return rows, dict(fused=fused_counts, split=split_counts, forms=forms["launches"],
@@ -3407,8 +3615,9 @@ def main() -> None:
         for r in rows])
 
     main_blocks: list = []
+    main_fills: list = []
     counts, state, main_ms, delivered = main_path(rx, base, delays, vcdus, esn0_db, cl_block=2,
-                                                  per_block=main_blocks)
+                                                  per_block=main_blocks, fills=main_fills)
     if PROFILE:
         say("profile", card=smi, path="main_path", **profile_steps(
             _Stepper(rx.step, clone_state(state)), base, delays,
@@ -3425,7 +3634,10 @@ def main() -> None:
         cfg, dcfg, base, delays, vcdus, esn0_db,
         dict(rx=rx, state=state, ms=main_ms, per_block=main_blocks, delivered=delivered),
         dict(ms=split_ms), rows, smi)
-    del rx, state
+    say("ring_steady", card=smi, block=RING_STEADY_BLOCK, **ring_steady(
+        rows + onchip_rows, main_fills[RING_STEADY_BLOCK], rx.ring_len, rx._demod.num_slots,
+        int(BLOCK_LEN / cfg.decimation / cfg.sps)))
+    del rx, state, main_fills
     torch.cuda.empty_cache()
     say("clock_max_block", card=smi, **clock_max_block_phase(cfg, base, delays, smi))
     torch.cuda.empty_cache()
@@ -3505,7 +3717,7 @@ def main() -> None:
     say("total", seconds=time.perf_counter() - t_start, seconds_up_to_each_line=PHASE_S)
     print(smi, flush=True)
     extra = ("launches_split_path", "launches_apps", "launches_parallel", "launches_tools",
-             "lanes", "split_shapes", "form", "path", "exact_ms", "split_shape")
+             "lanes", "split_shapes", "form", "path", "exact_ms", "split_shape", "steady")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows + onchip_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

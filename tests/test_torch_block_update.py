@@ -527,7 +527,7 @@ def test_rings_on_bf16_match_ring_pallas():
                               jnp.asarray(n_new), interpret=True)
     jr2, jf2, jout, jok = jring_extract(jr, jf, jnp.asarray(pos), E, interpret=True)
     tr, tf, to = ring_cuda.ring_append(ring16.clone(), _t(fill), _t(new), _t(n_new))
-    tr2, tf2, tout, tok = ring_cuda.ring_extract(tr, tf, _t(pos), E)
+    tr2, tf2, tout, tok = ring_cuda.ring_extract(tr.clone(), tf, _t(pos), E)   # in place
     assert tr.dtype == tr2.dtype == torch.bfloat16 and tout.dtype == torch.float32
     np.testing.assert_array_equal(tr.float().numpy(), np.asarray(jr, np.float32))
     np.testing.assert_array_equal(tr2.float().numpy(), np.asarray(jr2, np.float32))

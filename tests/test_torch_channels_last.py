@@ -73,7 +73,7 @@ def test_step_cl_is_step_and_matches_jax():
     rx = FusedReceiver(cfg, DecoderConfig(mode="lrit"), channels=2, block_len=T, device="cpu")
     jrx = JFusedReceiver(JDemodConfig.lrit(sample_rate=625_000), JDecoderConfig(mode="lrit"),
                          channels=2, block_len=T)
-    st_a = st_b = rx.init_state()
+    st_a, st_b = rx.init_state(), rx.init_state()     # a step updates its state's ring in place
     jst = jrx.init_state()
     frames = [[], []]
     for b in range(3):

@@ -122,3 +122,124 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             tring._check(ring, fill)
         with pytest.raises(ValueError):
             tring._check(ring.float(), fill.long())
+
+
+# --------------------------------------------------------------------------
+# the in-place extract: the ring handed back is the ring given
+# --------------------------------------------------------------------------
+
+def _ring(fill, L, dtype, rng):
+    """A (C, L) ring of `dtype` holding random symbols below `fill`, zeros past."""
+    vals = rng.normal(size=(len(fill), L)).astype(np.float32)
+    vals = np.where(np.arange(L)[None] < np.asarray(fill)[:, None], vals, 0.0).astype(np.float32)
+    return torch.from_numpy(vals).to(dtype)
+
+
+def _extract_in_place(ring, fill, pos, E):
+    """The port's extract on `ring` itself against the JAX kernel on a copy:
+    the same tensor comes back, its bits, fill, pop and flags equal to JAX's."""
+    before = ring.clone()
+    ptr = ring.data_ptr()
+    fill, pos = np.asarray(fill, np.int32), np.asarray(pos, np.int32)
+    r, f, out, ok = tring.ring_extract(ring, torch.from_numpy(fill), torch.from_numpy(pos), E)
+    assert r is ring and r.data_ptr() == ptr
+    jring_in = jnp.asarray(before.float().numpy()).astype(
+        jnp.bfloat16 if ring.dtype == torch.bfloat16 else jnp.float32)
+    jr, jf, jout, jok = jring.ring_extract(
+        jring_in, jnp.asarray(fill), jnp.asarray(pos), E, interpret=True)
+    np.testing.assert_array_equal(r.float().numpy(), np.asarray(jr, np.float32))
+    np.testing.assert_array_equal(f.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout, np.float32))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    assert out.dtype == torch.float32
+    return before, f.numpy(), out, ok.numpy()
+
+
+@pytest.mark.parametrize("dtype", tring.RING_DTYPES)
+def test_extract_is_in_place_and_equals_jax(dtype):
+    rng = np.random.default_rng(11)
+    C, L, E = 8, 640, 128
+    fill = np.array([0, 127, 128, 300, 500, 640, 129, 260], np.int32)
+    pos = np.array([0, 0, 0, 17, 100, 3, 1, 132], np.int32)
+    ring = _ring(fill, L, dtype, rng)
+    before, f, out, ok = _extract_in_place(ring, fill, pos, E)
+    assert ok.tolist() == [False, False, True, True, True, True, True, True]
+    for c in range(C):           # a channel short of a frame: its row as it was
+        if not ok[c]:
+            assert torch.equal(ring[c], before[c])
+
+
+@pytest.mark.parametrize("dtype", tring.RING_DTYPES)
+def test_extract_pop_overwritten_by_the_kept_symbols(dtype):
+    """The kept symbols land on the slots of the pop (nf > pos): `out` holds
+    the symbols as they were before the shift."""
+    rng = np.random.default_rng(12)
+    C, L, E = 4, 512, 64
+    pos = np.array([10, 3, 0, 37], np.int32)
+    fill = pos + E + np.array([200, 90, 300, 60], np.int32)      # nf > pos
+    ring = _ring(fill, L, dtype, rng)
+    before, f, out, ok = _extract_in_place(ring, fill, pos, E)
+    assert ok.all() and (f > pos).all()
+    for c in range(C):
+        np.testing.assert_array_equal(out[c].numpy(),
+                                      before[c, pos[c]:pos[c] + E].float().numpy())
+        assert torch.equal(ring[c, :f[c]], before[c, pos[c] + E:fill[c]])
+        assert not ring[c, f[c]:].float().any()
+
+
+@pytest.mark.parametrize("dtype", tring.RING_DTYPES)
+def test_extract_at_pos_0_with_exactly_a_frame(dtype):
+    """pos 0 and fill == E: the whole ring is popped, nothing kept."""
+    rng = np.random.default_rng(13)
+    C, L, E = 3, 300, 96
+    fill = np.full(C, E, np.int32)
+    ring = _ring(fill, L, dtype, rng)
+    before, f, out, ok = _extract_in_place(ring, fill, np.zeros(C, np.int32), E)
+    assert ok.all() and not f.any() and not ring.float().any()
+    np.testing.assert_array_equal(out.numpy(), before[:, :E].float().numpy())
+
+
+@pytest.mark.parametrize("dtype", tring.RING_DTYPES)
+def test_extract_from_a_full_ring(dtype):
+    """fill == L, at pos 0 and past it."""
+    rng = np.random.default_rng(14)
+    C, L, E = 4, 301, 100
+    fill = np.full(C, L, np.int32)
+    pos = np.array([0, 1, 7, L - E], np.int32)
+    ring = _ring(fill, L, dtype, rng)
+    before, f, out, ok = _extract_in_place(ring, fill, pos, E)
+    assert ok.all() and f.tolist() == (L - pos - E).tolist()
+
+
+@pytest.mark.parametrize("dtype", tring.RING_DTYPES)
+def test_tail_past_fill_stays_zero_through_a_stream(dtype):
+    """Ragged appends and in-place pops, one ring throughout, against the JAX
+    kernels' chain: after every call the slots past the fill are zero."""
+    rng = np.random.default_rng(15)
+    C, L, S, E = 6, 700, 257, 200
+    ring = torch.zeros((C, L), dtype=dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jr = jnp.zeros((C, L), jdt)
+    fill = np.zeros(C, np.int32)
+    jf = jnp.asarray(fill)
+    pops = 0
+    for it in range(10):
+        new = rng.normal(size=(C, S)).astype(np.float32)
+        n = rng.integers(0, S + 1, C).astype(np.int32)
+        r, f, _ = tring.ring_append(ring, torch.from_numpy(fill), torch.from_numpy(new),
+                                    torch.from_numpy(n))
+        jr, jf, _ = jring.ring_append(jr, jf, jnp.asarray(new), jnp.asarray(n), interpret=True)
+        assert r is ring
+        fill = f.numpy()
+        pos = rng.integers(0, 50, C).astype(np.int32)
+        r, f, out, ok = tring.ring_extract(ring, f, torch.from_numpy(pos), E)
+        jr, jf, jout, jok = jring.ring_extract(jr, jf, jnp.asarray(pos), E, interpret=True)
+        assert r is ring
+        fill = f.numpy()
+        pops += int(ok.sum())
+        np.testing.assert_array_equal(ring.float().numpy(), np.asarray(jr, np.float32))
+        np.testing.assert_array_equal(fill, np.asarray(jf))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jout, np.float32))
+        for c in range(C):
+            assert not ring[c, fill[c]:].float().any()
+    assert pops > 0

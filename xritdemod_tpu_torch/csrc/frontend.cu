@@ -226,6 +226,9 @@ __device__ __forceinline__ void fir_stage(const FrontArgs& a, Tiles<TR>& s, floa
         er[k * 32 + lane] = k < nh ? a.hr[(size_t)g.cc * nh + k] : 0.0f;
         ei[k * 32 + lane] = k < nh ? a.hi[(size_t)g.cc * nh + k] : 0.0f;
     }
+    // Rows nh .. nh+TR-1, zeroed here by one warp, take the first tile's
+    // AGC output from another: every warp zeroes before any writes a tile.
+    named_barrier(FIR_BARRIER, FIR_THREADS);
     for (int i = 0; i < g.ntiles; ++i) {
         const int xs = i % NX, turn = i / NX;
         const int s0 = i * TR;
@@ -721,6 +724,7 @@ __device__ __forceinline__ void slab_fir(const FrontArgs& a, SlabTiles<TR>& s, f
         er[k * SCPB + c] = k < nh ? hist[k] : 0.0f;
         if constexpr (BF16) eb[k * SCPB + c] = round_bf16(er[k * SCPB + c]);
     }
+    named_barrier(FIR_BARRIER, FIR_THREADS);     // as in fir_stage: zeroes before tiles
     const int K = SK ? SK : a.bk;
     const bool clamp = a.max_gain > 0.0f;
     int kin[FIR_R];                    // each row's place in its slab

@@ -2,26 +2,32 @@
 
 Replaces `xritdemod_tpu/ops/ring_pallas.py` (`ring_append` / `_append_kernel`
 and `ring_extract` / `_extract_kernel`).  Each channel keeps a
-fixed-capacity symbol FIFO; new demod output is appended at the per-channel
-fill offset, and frame-aligned chunks are popped at the per-channel sync
-position, so soft symbols never visit the host.  The kernels are in
-`csrc/ring.cu`: a block per channel copies at its own offset.  Both are
-bound by bytes (append: the new symbols once; extract: the ring once).
+fixed-capacity symbol FIFO; new demod output is appended at the
+per-channel fill offset, and frame-aligned chunks are popped at the
+per-channel sync position, so soft symbols never visit the host.  The
+kernels are in `csrc/ring.cu`; both are bound by bytes and move only the
+slots their function must touch, with 16-byte accesses realigned by
+funnel shifts (append: the new symbols once, in a grid sized by the
+block's length; extract: `[pos, fill)` read, `[0, fill)` written).
 
   - `ring_append(ring, fill, new, n_new)`: place `new[c, :n_new[c]]` at
     `ring[c, fill[c]:]`.  A channel that would overflow drops the incoming
     block and reports it.  **The ring is updated in place** and returned.
   - `ring_extract(ring, fill, pos, extract=E)`: pop `ring[c, pos[c]:pos[c]+E]`
-    (everything before `pos` is pre-sync junk and is dropped with it) into
-    a new ring.  A channel with fewer than `pos+E` symbols is left untouched,
-    reports not-ok and hands back `ring[c, :E]`.
+    (everything before `pos` is pre-sync junk and is dropped with it) and
+    shift the rest of the channel to its front.  **The ring is updated in
+    place** and returned (the JAX function returns a new ring; the port
+    allocates no second one): only `[0, fill[c])` of each channel is
+    touched, and slots at and past `fill` are left as they are, which the
+    invariant below keeps at zero.  A channel with fewer than `pos+E`
+    symbols is left untouched, reports not-ok and hands back `ring[c, :E]`.
 
-Invariant maintained: `ring[c, fill[c]:] == 0`.  The ring is float32 or
-bfloat16 (the Pallas kernels' narrow ring: half the bytes): the append
-rounds the float32 symbols to the ring's type, to nearest even, and the
-extract hands out float32 (a bf16 value widens exactly), as the Pallas
-kernels convert at the edge.  The plain versions below serve CPU tensors; a
-CUDA tensor takes the kernels.
+Invariant maintained (and relied on by the extract): `ring[c, fill[c]:] ==
+0`.  The ring is float32 or bfloat16 (the Pallas kernels' narrow ring: half
+the bytes): the append rounds the float32 symbols to the ring's type, to
+nearest even, and the extract hands out float32 (a bf16 value widens
+exactly), as the Pallas kernels convert at the edge.  The plain versions
+below serve CPU tensors; a CUDA tensor takes the kernels.
 """
 
 from __future__ import annotations
@@ -69,7 +75,9 @@ def ring_append_plain(ring, fill, new, n_new):
 
 @torch.no_grad()
 def ring_extract_plain(ring, fill, pos, extract: int):
-    """Plain PyTorch version of `ring_extract` (same contract)."""
+    """Plain PyTorch version of `ring_extract` (in place, same contract):
+    the JAX function's whole-row formula, written into `ring` after `out`
+    is taken from it."""
     C, L = ring.shape
     E = extract
     ok = fill >= (pos + E)
@@ -79,8 +87,8 @@ def ring_extract_plain(ring, fill, pos, extract: int):
     out = torch.gather(ring, 1, start[:, None] + torch.arange(E, device=ring.device))
     lane = torch.arange(L, device=ring.device)[None, :]
     shifted = torch.gather(ring, 1, (drop[:, None] + lane).clamp(max=L - 1))
-    ring2 = torch.where(lane < new_fill[:, None], shifted, 0.0)
-    return ring2, new_fill, out.to(torch.float32), ok
+    ring.copy_(torch.where(lane < new_fill[:, None], shifted, 0.0))
+    return ring, new_fill, out.to(torch.float32), ok
 
 
 def _fn(name: str, nptr: int, ring: torch.Tensor):
@@ -140,10 +148,20 @@ def ring_append(ring, fill, new, n_new):
 
 @torch.no_grad()
 def ring_extract(ring, fill, pos, extract: int):
-    """Pop `extract` symbols starting at each channel's `pos`.
+    """Pop `extract` symbols starting at each channel's `pos`, in place.
 
-    Returns `(ring', fill', out (C, E) float32, ok (C,) bool)`; a channel
-    with fewer than `pos+E` symbols is untouched (`ok=False`,
+    Args:
+      ring: `(C, L)` float32 or bfloat16 symbol buffer, `ring[c, fill[c]:]`
+        zero (every `ring_append` keeps that; the kernel relies on it and
+        does not touch those slots).
+      fill: `(C,)` int32 symbol counts (read as at most L).
+      pos: `(C,)` int32 frame starts, `>= 0`.
+      extract: the number of symbols E to pop per channel, `<= L`.
+
+    Returns `(ring, fill', out (C, E) float32, ok (C,) bool)`, where `ring`
+    is the tensor given, updated: a popping channel's `[pos+E, fill)` moved
+    to its front and the slots that vacates, up to the old fill, zeroed.
+    A channel with fewer than `pos+E` symbols is untouched (`ok=False`,
     `out = ring[c, :E]`).
     """
     global launches_extract, launches_extract_bf16
@@ -155,14 +173,13 @@ def ring_extract(ring, fill, pos, extract: int):
     if E > L:
         raise ValueError(f"extract {E} exceeds ring length {L}")
     fill, pos = fill.contiguous(), pos.contiguous()
-    ring_out = torch.empty_like(ring)
     out = torch.empty((C, E), dtype=torch.float32, device=ring.device)
     fill_out = torch.empty_like(fill)
     ok = torch.empty_like(fill)
     with _build.launch_on(ring) as stream:
-        err = _fn("xrit_ring_extract", 7, ring)(
+        err = _fn("xrit_ring_extract", 6, ring)(
             ring.data_ptr(), fill.data_ptr(), pos.data_ptr(),
-            ring_out.data_ptr(), out.data_ptr(), fill_out.data_ptr(), ok.data_ptr(),
+            out.data_ptr(), fill_out.data_ptr(), ok.data_ptr(),
             C, L, E, stream,
         )
     _build.check(err, "xrit_ring_extract")
@@ -170,4 +187,4 @@ def ring_extract(ring, fill, pos, extract: int):
         launches_extract_bf16 += 1
     else:
         launches_extract += 1
-    return ring_out, fill_out, out, ok.bool()
+    return ring, fill_out, out, ok.bool()

@@ -3,8 +3,9 @@
 `frontend_bk8_bf16`, and on one loop, `frontend_bk8_agc` and
 `frontend_bk8_costas`), the clock (K2: its mmse instance `clock`, its sinc
 instance `clock_sinc`, and their block updates at K = 16, `clock_bu` and
-`clock_bu_sinc`), the Viterbi decoder (K3), the standalone AGC (K5) and
-Costas loop (K6; its slab form at K = 8, `costas_slab`).
+`clock_bu_sinc`), the Viterbi decoder (K3), the symbol ring (K4, `ring`),
+the standalone AGC (K5) and Costas loop (K6; its slab form at K = 8,
+`costas_slab`).
 
     python -m xritdemod_tpu_torch.tools.kernel_probe            # needs a GPU and nvcc
     python -m xritdemod_tpu_torch.tools.kernel_probe agc_block costas_block
@@ -15,6 +16,7 @@ Costas loop (K6; its slab form at K = 8, `costas_slab`).
     python -m xritdemod_tpu_torch.tools.kernel_probe costas_slab [--rounds N] \
         [--baseline OTHER/stream.cu]
     python -m xritdemod_tpu_torch.tools.kernel_probe viterbi [--rounds N] [--baseline OTHER/viterbi.cu]
+    python -m xritdemod_tpu_torch.tools.kernel_probe ring [--rounds N] [--baseline OTHER/ring.cu]
 
 Times the kernels named on the command line (all by default) at the
 shipped LRIT shape (2048 channels x 131072 samples, a synthetic BPSK-like
@@ -59,6 +61,27 @@ with the six-argument entry of the one-warp-per-window kernel
 (`xrit_viterbi(soft, dec, bits, NW, T, stream)`, decisions `(NW, T, 2)`
 u32), for instance that file of an earlier commit.
 
+K4 (`ring`): the append and the in-place extract, on a float32 and on a
+bfloat16 ring of the fused receive's length (C = 2048, L = 72064), at
+`chip_smoke.py`'s inputs (random fills, every 97th channel set to
+overflow, the clock's count of symbols a block; pops at random positions,
+every 61st channel half a frame short) and at the steady state of a
+locked receive (pos 0; the fills a receive's bookkeeping reaches after
+four blocks from acquisition lags uniform in one frame).  Each row holds
+its time beside its bound (`bound_ms`: the bytes the function must move
+over 3.35 TB/s, as `chip_smoke.py` counts them) and, in round 0, whether
+its ring, fill, flags and pop equal the plain version's (`bits_equal`) and
+what one call allocates (`allocated_bytes`).  Each round also times one
+`Tensor.copy_` of a float32 ring: the share of the card's peak rate a
+plain device copy reaches (a yardstick; the port calls no such copy).  The
+variants change the step (vectors a thread, threads a block), the blocks
+of a channel's extract (a cluster), where the sources are realigned
+(shared memory) and how the append loads them (one bulk copy, TMA).
+`--baseline PATH` with another `ring.cu` that keeps the out-of-place
+extract (`xrit_ring_extract(ring, fill, pos, ring_out, out, fill_out, ok,
+C, L, E, stream)`, e.g. an earlier commit's) times it as one more
+variant, its extract writing a ring of its own.
+
 This is how the kernels' layouts were found (PERF.md has the figures); run
 it again when a kernel, or the card, changes.
 """
@@ -78,7 +101,8 @@ from xritdemod_tpu_torch import _build
 from xritdemod_tpu_torch import constants as K
 from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator
-from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, stream_cuda, viterbi_cuda
+from xritdemod_tpu_torch.models.receiver import FusedReceiver
+from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = ["VARIANTS", "LIBRARY", "main"]
@@ -270,15 +294,36 @@ VARIANTS["viterbi"] = {
         (("for (int c = ntb - 1; c >= 0; --c)", "for (int c = ntb - 1; c >= ntb; --c)"),),
 }
 
+# K4 (`ring_append_kernel`, `ring_extract_kernel`): the step of a sweep
+# (vectors a thread, threads a block), the blocks of a channel's extract
+# (as shipped a cluster of 4), the sources realigned in shared memory, the
+# append's sources by one bulk copy.
+VARIANTS["ring"] = {
+    "as shipped": (),
+    "2 vectors a thread a step": (("#define RING_VPT 4", "#define RING_VPT 2"),),
+    "8 vectors a thread a step": (("#define RING_VPT 4", "#define RING_VPT 8"),),
+    "128 threads a block": (("#define RING_THREADS 256", "#define RING_THREADS 128"),),
+    "512 threads a block": (("#define RING_THREADS 256", "#define RING_THREADS 512"),),
+    "extract on one block a channel": (("#define RING_CLUSTER 4", "#define RING_CLUSTER 1"),),
+    "extract on a cluster of 2 blocks a channel":
+        (("#define RING_CLUSTER 4", "#define RING_CLUSTER 2"),),
+    "extract on a cluster of 8 blocks a channel":
+        (("#define RING_CLUSTER 4", "#define RING_CLUSTER 8"),),
+    "extract's sources staged in shared memory":
+        (("#define RING_EXTRACT_STAGE 0", "#define RING_EXTRACT_STAGE 1"),),
+    "append's sources by one bulk copy (TMA) into shared memory":
+        (("#define RING_APPEND_TMA 0", "#define RING_APPEND_TMA 1"),),
+}
+
 # The library (`csrc/<name>.cu`) that holds each kernel.
 LIBRARY = {"frontend": "frontend", "frontend_bk8": "frontend", "frontend_bk8_bf16": "frontend",
            "frontend_bk8_agc": "frontend", "frontend_bk8_costas": "frontend",
            "clock": "clock", "clock_sinc": "clock", "clock_bu": "clock", "clock_bu_sinc": "clock",
            "agc_block": "stream", "costas_block": "stream", "costas_slab": "stream",
-           "viterbi": "viterbi"}
+           "viterbi": "viterbi", "ring": "ring"}
 # The entry that marks a baseline source as that library's.
 _ENTRY = {"clock": "xrit_clock_sinc", "frontend": "xrit_frontend_form",
-          "stream": "xrit_costas_slab"}
+          "stream": "xrit_costas_slab", "ring": "xrit_ring_append"}
 
 # K2's instances: (interpolator, chunk K); timed at C = CHANNELS and at one
 # channel (the serial path's and the apps' count); the mmse block update
@@ -426,6 +471,133 @@ def viterbi_probe(card: str, dev, baseline: str | None, rounds: int = 1) -> None
     _spread("viterbi", times, card)
 
 
+def steady_fills(C: int, n: int, E: int, k: int, blocks: int, gen) -> torch.Tensor:
+    """The fills a locked receive's ring holds after `blocks` blocks of `n`
+    symbols, `k` pops a block: the first at an acquisition lag uniform in
+    [0, E), then at pos 0 wherever a whole frame is there."""
+    fill = torch.zeros(C, dtype=torch.int64)
+    pos = torch.randint(0, E, (C,), generator=gen)
+    for _ in range(blocks):
+        fill += n
+        for _ in range(k):
+            ok = fill >= pos + E
+            fill = torch.where(ok, fill - pos - E, fill)
+            pos = torch.where(ok, 0, pos)
+    return fill.to(torch.int32)
+
+
+def ring_probe(card: str, dev, baseline: str | None, rounds: int = 1) -> None:
+    """K4a and K4b on float32 and bf16 rings at `chip_smoke.py`'s inputs and
+    at a steady state, every variant (and `baseline`), `rounds` times."""
+    cfg = DemodConfig.lrit(sample_rate=1_250_000)
+    rx = FusedReceiver(cfg, DecoderConfig(mode="lrit"), channels=CHANNELS, block_len=BLOCK_LEN,
+                       device=dev)
+    C, L, S, E = CHANNELS, rx.ring_len, rx._demod.num_slots, K.CODED_FRAME_SIZE
+    n = int(BLOCK_LEN / cfg.decimation / cfg.sps)          # the clock's symbols a block
+    gen = torch.Generator().manual_seed(7)
+    lane = torch.arange(L, device=dev)[None, :]
+    new = torch.randn((C, S), generator=gen).to(dev)
+    n_new = (n + torch.randint(0, 2, (C,), generator=gen)).to(torch.int32).to(dev)
+    fill = torch.randint(0, L - S, (C,), generator=gen).to(torch.int32)
+    fill[::97] = L - 100
+    fill = fill.to(dev)
+    steady = steady_fills(C, n, E, rx.k, 4, gen).to(dev)
+    runs = {}                       # (kernel, inputs) -> (args, bound bytes)
+    for dtype, width in ((torch.float32, 4), (torch.bfloat16, 2)):
+        name = "" if dtype == torch.float32 else "_bf16"
+        vals = torch.randn((C, L), generator=gen).to(dev).to(dtype)
+        for inputs, f0 in (("check", fill), ("steady", steady)):
+            ring = torch.where(lane < f0[:, None], vals, 0).to(dtype)
+            ok = f0 + n_new <= L
+            moved = int(n_new[ok].sum())
+            runs[("ring_append" + name, inputs)] = (
+                (ring, f0, new, n_new), (4 + width) * moved + 16 * C)
+            ring2, f2, _ = ring_cuda.ring_append_plain(ring.clone(), f0, new, n_new)
+            if inputs == "check":
+                f2[1::61] = E // 2
+                ring2[1::61, E // 2:] = 0
+                pos = torch.randint(0, E, (C,), generator=gen).to(torch.int32).to(dev)
+            else:
+                pos = torch.zeros_like(f2)
+            pok = f2 >= pos + E
+            kept = int((f2 - pos - E)[pok].sum())
+            runs[("ring_extract" + name, inputs)] = (
+                (ring2, f2, pos, E), width * (kept + int(f2[pok].sum())) + (width + 4) * C * E
+                + 16 * C)
+            del ring
+    want = {}
+    for (kernel, inputs), (args, _) in runs.items():
+        plain = ring_cuda.ring_append_plain if "append" in kernel else ring_cuda.ring_extract_plain
+        want[(kernel, inputs)] = _bits(plain(args[0].clone(), *args[1:]))
+    libs = _build_variants("ring")
+    if baseline:
+        libs.append((f"baseline {baseline}", _library_baseline(baseline, "ring")))
+    # A yardstick, not a kernel of the port: the share of the peak rate one
+    # `Tensor.copy_` of a float32 ring reaches on this card.
+    src = runs[("ring_extract", "check")][0][0]
+    dst = torch.empty_like(src)
+    times: dict[str, list[float]] = {}
+    for r in range(rounds):
+        ms = _time_ms(lambda: dst.copy_(src), 20)
+        bms = 2 * src.numel() * 4 / 3.35e12 * 1e3
+        times.setdefault("Tensor.copy_ of a float32 ring", []).append(ms)
+        print(json.dumps(dict(kernel="Tensor.copy_ of a float32 ring", round=r, ms=ms,
+                              bound_ms=bms, share_of_bound=bms / ms, card=card)), flush=True)
+        for what, lib in libs if r % 2 == 0 else libs[::-1]:
+            old = what.startswith("baseline")
+            for (kernel, inputs), (args, nbytes) in runs.items():
+                ring = args[0].clone()
+                if old and "extract" in kernel:
+                    fn = _old_extract(lib, ring, *args[1:])
+                elif "append" in kernel:
+                    fn = lambda: ring_cuda.ring_append(ring, *args[1:])
+                else:
+                    fn = lambda: ring_cuda.ring_extract(ring, *args[1:])
+                row = dict(kernel=kernel, round=r, variant=what, inputs=inputs, card=card)
+                with _build.using("ring", lib):
+                    if r == 0:
+                        # What one call allocates beyond its inputs: `out`,
+                        # and a second ring where the extract is out of place.
+                        torch.cuda.synchronize(dev)
+                        torch.cuda.reset_peak_memory_stats(dev)
+                        m0 = torch.cuda.memory_allocated(dev)
+                        got = _bits(fn())
+                        row["allocated_bytes"] = torch.cuda.max_memory_allocated(dev) - m0
+                        row["bits_equal"] = _same_bits(got, want[(kernel, inputs)])
+                        del got
+                        ring.copy_(args[0])
+                    # The traffic of a call depends only on fill, pos and
+                    # n_new, so the calls can reuse one ring.
+                    row["ms"] = _time_ms(fn, 20)
+                row["bound_ms"] = nbytes / 3.35e12 * 1e3
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                times.setdefault(f"{what} | {kernel} | {inputs}", []).append(row["ms"])
+                print(json.dumps(row), flush=True)
+                del ring, fn
+    if rounds > 1:
+        _spread("ring", times, card)
+
+
+def _old_extract(lib, ring, fill, pos, E):
+    """A call of an out-of-place `xrit_ring_extract` (its own `ring_out`),
+    returning what the in-place wrapper returns."""
+    fn = lib.xrit_ring_extract_bf16 if ring.dtype == torch.bfloat16 else lib.xrit_ring_extract
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    C, L = ring.shape
+
+    def call():                  # allocates as that source's wrapper did
+        ring_out = torch.empty_like(ring)
+        out = torch.empty((C, E), dtype=torch.float32, device=ring.device)
+        fill_out, ok = torch.empty_like(fill), torch.empty_like(fill)
+        with _build.launch_on(ring) as stream:
+            err = fn(ring.data_ptr(), fill.data_ptr(), pos.data_ptr(), ring_out.data_ptr(),
+                     out.data_ptr(), fill_out.data_ptr(), ok.data_ptr(), C, L, E, stream)
+        _build.check(err, "baseline xrit_ring_extract")
+        return ring_out, fill_out, out, ok.bool()
+    return call
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: no CUDA device; this probe runs on a GPU only")
@@ -445,10 +617,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     # A baseline source is the clock's, the front end's, the stream
-    # kernels' or (with none of their entries) the Viterbi kernel's.
-    # A baseline source is the clock's, the front end's, the stream
-    # kernels' or (with none of their entries) the Viterbi kernel's; one of
-    # each library at most.
+    # kernels', the ring's or (with none of their entries) the Viterbi
+    # kernel's; one of each library at most.
     kinds = {}
     for path in baselines:
         text = open(path).read()
@@ -456,8 +626,11 @@ def main() -> None:
     if "viterbi" in kernels:
         viterbi_probe(card, dev, kinds.get("viterbi"), rounds)
         kernels = [k for k in kernels if k != "viterbi"]
-        if not kernels:
-            return
+    if "ring" in kernels:
+        ring_probe(card, dev, kinds.get("ring"), rounds)
+        kernels = [k for k in kernels if k != "ring"]
+    if not kernels:
+        return
     demod = Demodulator(DemodConfig.lrit(sample_rate=1_250_000), BLOCK_LEN)
     gen = torch.Generator(device=dev).manual_seed(7)
     noise = lambda: 0.05 * torch.randn((BLOCK_LEN, CHANNELS), generator=gen, device=dev)
@@ -506,7 +679,8 @@ def main() -> None:
         costas_block=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas),
         costas_slab=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas, 8),
     )
-    others = {lib: _library_baseline(path, lib) for lib, path in kinds.items() if lib in _ENTRY}
+    others = {lib: _library_baseline(path, lib) for lib, path in kinds.items()
+              if lib in _ENTRY and lib != "ring"}
     for kernel in kernels:
         library = LIBRARY[kernel]
         libs = _build_variants(kernel)

@@ -64,6 +64,7 @@ def components(rx, x, st):
         return ring, torch.where(fill > L - 2 * FRAME, zero, fill)
 
     def extract(carry):
+        # In place: every call pops from, and shifts, the one carried ring.
         ring, fill = carry[:2]
         ring, f2, out, ok = ring_extract(ring, fill, zero, FRAME)
         return ring, torch.where(ok, f2, fill + 30000), out
