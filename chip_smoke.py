@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA device, nvcc, no network
     python3 chip_smoke.py --profile  # also: device time of a step by kernel name,
                                      # and which warp of K1, K2, K5, K6 sets their time
+    python3 chip_smoke.py --under-load   # the build and the `under_load` phase alone
 
 Builds the six CUDA libraries from `xritdemod_tpu_torch/csrc/` (and the apps'
 host library, `runtime/native.py`, whose failure it reports), holds every
@@ -46,6 +47,13 @@ C = 2048 channels x 131072 samples per block, on synthesised captures:
     times beside the exact forms'; K1 with the slab on one loop
     (`block_stages="agc"` or `"costas"`, float32 and bf16) called as its op,
     and the four float32 forms of K = 8 timed in turns on one input;
+  - `under_load`: every kernel whose warps or blocks hand work to each
+    other, in the cases of `tools/hazard_check.py` (its FAMILIES; part-filled
+    last blocks of channels, edge states), launched again and again beside a
+    side stream's matrix products and beside its copies of a 1 GiB buffer,
+    each launch bit for bit against the plain version; then the fused step
+    and the split path with `StreamDecoder`s at C = 64 x 2^15, bit-equal
+    between an idle run and a run beside each load;
   - `clock_max_block=2^15`: one `block_batch` exact and one with the block
     update, four segments, against the plain clock over the same segments;
 
@@ -146,7 +154,9 @@ from xritdemod_tpu_torch.runtime.apps import DemodulatorApp, ReceiverApp
 from xritdemod_tpu_torch.runtime.config import demod_config_from_file
 from xritdemod_tpu_torch.runtime import native
 from xritdemod_tpu_torch.runtime.frontends import CFileFrontend
-from xritdemod_tpu_torch.tools import dist_worker, interop_run, long_soak, roll_probe, timing
+from xritdemod_tpu_torch.tools import (
+    dist_worker, hazard_check, interop_run, long_soak, roll_probe, timing,
+)
 from xritdemod_tpu_torch.utils.cplx import (
     CF32, dequantize_iq_s8, from_complex, quantize_iq_s8, to_complex,
 )
@@ -173,6 +183,7 @@ PEAK_F32 = 67e12
 
 DEV = torch.device("cuda", 0)
 PROFILE = "--profile" in sys.argv[1:]
+UNDER_LOAD_ONLY = "--under-load" in sys.argv[1:]      # the build and `under_load` alone
 
 
 PHASE_S: dict[str, float] = {}        # wall seconds from the previous line to each
@@ -263,14 +274,16 @@ def channel_delays() -> np.ndarray:
     return ((c // STREAMS) * 137 + (c % STREAMS) * 11) * 1009 % MAX_DELAY
 
 
-def make_block(base: CF32, delays: np.ndarray, b: int, gen: torch.Generator) -> CF32:
-    """Block `b` of the `(C, T)` capture: channel c carries stream c % STREAMS
-    delayed by its own number of samples, plus its own noise."""
-    t0 = b * BLOCK_LEN
+def make_block(base: CF32, delays: np.ndarray, b: int, gen: torch.Generator,
+               length: int = BLOCK_LEN) -> CF32:
+    """Block `b` of the `(C, T)` capture (T = `length`): channel c carries
+    stream c % STREAMS delayed by its own number of samples, plus its own
+    noise."""
+    t0 = b * length
     planes = []
     for plane in (base.re, base.im):
         rows = [
-            plane[c % STREAMS, t0 + int(d) : t0 + int(d) + BLOCK_LEN]
+            plane[c % STREAMS, t0 + int(d) : t0 + int(d) + length]
             for c, d in enumerate(delays)
         ]
         x = torch.stack(rows)
@@ -1604,13 +1617,6 @@ def ragged_len(T: int, K: int) -> int:
     return T - T % K
 
 
-def _flat(out) -> list:
-    """A kernel's result as a flat list of its tensors."""
-    if isinstance(out, torch.Tensor):
-        return [out]
-    return [t for o in out for t in _flat(o)] if isinstance(out, (tuple, list)) else []
-
-
 # Costas states at the edges the slab walks' fast paths rely on (loops.cuh):
 # the wrap bounds +-2 pi and the floats just past them, +-0, freq at and past
 # the clip bounds (with inputs of |x| ~ 1.2 the errors push it either way,
@@ -1673,70 +1679,202 @@ def check_slab_edges(demod: Demodulator) -> dict:
     return out
 
 
-# K1 under another stream's load: channel counts whose last block of channels
-# is part-filled, block lengths that are whole slabs of every form below,
-# and the forms: the exact ones and the slab kernel's instances (both loops,
-# the Costas loop alone; the spread walk at K = 8, a lane a channel at K = 1;
-# tiles of 48 and 64 rows).
-LOAD_SHAPES = ((3, 960), (70, 960))
-LOAD_FORMS = ((0, "both", "highest"), (0, "both", "bf16"), (1, "costas", "highest"),
-              (8, "both", "highest"), (8, "both", "bf16"), (8, "costas", "bf16"),
-              (64, "both", "highest"))
-LOAD_REPS = 24
+# --------------------------------------------------------------------------
+# every multi-warp kernel under load, and the paths
+# --------------------------------------------------------------------------
+
+# Every kernel of xritdemod_tpu_torch/csrc/ whose warps or blocks hand work
+# to each other (mbarrier rings, cp.async loaders, named and cluster
+# barriers, flags in shared memory) is held under load by the case families
+# of tools/hazard_check.py (its FAMILIES: family -> kernel).  The kernels
+# that need no load case, and why:
+HAZARD_EXEMPT = {
+    "viterbi_kernel": "one warp of 32 threads a block (__launch_bounds__(32)): no hand-off "
+                      "between warps or blocks; `check_paths_under_load` runs it on both paths",
+    "trig_check_kernel": "a check of the Costas step's sine and cosine, not a stage",
+    "large_trig_check_kernel": "a check of the slab walks' large-argument sine, not a stage",
+    "sinc_tap_check_kernel": "a check of the sinc clock's branch-free taps, not a stage",
+    "probe": "sched_probe.cu: a probe of the warp schedulers, built by no path",
+}
+LOADS = ("compute", "memory")
+LOAD_REPS = 24             # launches of a case under each load
+LOAD_COPY_FLOATS = 1 << 28   # the memory-bound load copies a buffer of 1 GiB
 
 
-def check_frontend_under_load(demod: Demodulator) -> dict:
-    """K1's LOAD_FORMS, each launched LOAD_REPS times on one input while a
-    side stream keeps the card busy with matrix products, against one run of
-    its plain version, bit for bit (`torch.equal` on every output).  A
-    hazard between a block's warps shows only when their timing varies: an
-    unordered write to the FIR ring's first rows changed 29 of these 336
-    launches on an H100, where the ragged checks on an idle card mostly
-    passed."""
-    g = torch.Generator(device=DEV).manual_seed(SEED + 17)
-    rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=DEV)
-    fe = (demod._agc, demod._rrc_taps, demod._costas)
-    stop = threading.Event()
+class SideLoad:
+    """Work on a side stream of the card while the block runs: `compute`,
+    4096^2 float32 products (the SMs and their schedulers busy), or
+    `memory`, repeated `copy_` of a 1 GiB buffer (device memory's
+    bandwidth busy: the cp.async loaders then race its latency).  The
+    block starts once the first batch is queued."""
 
-    def load() -> None:
+    def __init__(self, kind: str):
+        self.kind, self.stop, self.started = kind, threading.Event(), threading.Event()
+        self.worker = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
         side = torch.cuda.Stream()
         with torch.cuda.stream(side):
-            a = torch.rand(4096, 4096, device=DEV)
-            while not stop.is_set():
+            if self.kind == "compute":
+                a = torch.rand(4096, 4096, device=DEV)
+                work = lambda: torch.tanh(a @ a, out=a)
+            else:
+                src = torch.ones(LOAD_COPY_FLOATS, device=DEV)
+                dst = torch.empty_like(src)
+                work = lambda: dst.copy_(src)
+            while not self.stop.is_set():
                 for _ in range(4):
-                    a = torch.tanh(a @ a)
+                    work()
+                self.started.set()
                 side.synchronize()
 
+    def __enter__(self):
+        self.worker.start()
+        if not self.started.wait(60):
+            fail(f"the {self.kind} side load did not start")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop.set()
+        self.worker.join(60)
+        if exc[0] is None:
+            torch.cuda.synchronize()
+
+
+def check_under_load(cases: list) -> dict:
+    """Each `(name, launch, plain)` case of `tools/hazard_check.cases`,
+    launched LOAD_REPS times beside each of the LOADS, against one run of
+    its plain version, bit for bit (every output and every carried state).
+    A hazard between a block's warps shows only when their timing varies:
+    an unordered write to K1's FIR ring changed 29 of 336 such launches on
+    an H100 where the ragged checks on an idle card mostly passed.
+    Every launch must be a kernel's (the wrappers' counts rise by one a
+    launch); a launch that raises (a wait that never returns traps after 4 s,
+    csrc/sync.cuh) fails the run like one that differs.  Returns, per case
+    and load, the launches, those that differ, the index of the first
+    differing output and the seconds."""
     t0 = time.perf_counter()
+    families = {name.split("/")[0] for name, _, _ in cases}
+    if families != set(hazard_check.FAMILIES):
+        fail(f"under load: case families {sorted(families)} are not hazard_check.FAMILIES "
+             f"{sorted(hazard_check.FAMILIES)}")
     # The plain versions first: their recurrences are captured as CUDA
     # graphs, which another stream's work would invalidate.
-    cases = []
-    for C, T in LOAD_SHAPES:
-        st = demod.init_state_batch(C)
-        for bk, stages, prec in LOAD_FORMS:
-            s = (st.agc_gain + rnd(C).abs(), CF32(rnd(C, 62), rnd(C, 62)), st.costas)
-            x = ragged_signal(T, C, rnd)
-            form = dict(block_k=bk, precision=prec, block_stages=stages)
-            p = _flat(frontend_cuda.demod_frontend_plain(x, *s, *fe, **form))
-            cases.append(([C, T, bk, stages, prec], x, s, form, p))
-    worker = threading.Thread(target=load)
-    worker.start()
-    launches, differing = 0, []
-    try:
-        for case, x, s, form, p in cases:
-            for _ in range(LOAD_REPS):
-                k = _flat(frontend_cuda.demod_frontend(x, *s, *fe, **form))
-                launches += 1
-                if not all(torch.equal(a, b) for a, b in zip(k, p)):
-                    differing.append(case)
-    finally:
-        stop.set()
-        worker.join()
-    if differing:
-        fail(f"onchip: K1 under load differs from its plain version in {len(differing)} of "
-             f"{launches} launches: {differing[:8]}")
-    return dict(shapes=LOAD_SHAPES, forms=len(LOAD_FORMS), launches=launches,
-                differing=0, seconds=time.perf_counter() - t0)
+    plains = [plain() for _, _, plain in cases]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rows = {name: {} for name, _, _ in cases}
+    launches = differing = 0
+    for kind in LOADS:
+        with SideLoad(kind):
+            for (name, launch, _), want in zip(cases, plains):
+                tc = time.perf_counter()
+                before = sum(read_counts().values())
+                bad, first = 0, None
+                for _ in range(LOAD_REPS):
+                    try:
+                        got = launch()
+                        i = hazard_check.first_difference(got, want)
+                    except Exception as e:
+                        fail(f"under load ({kind}): {name} raised {e!r}")
+                    if i is not None:
+                        bad += 1
+                        first = i if first is None else first
+                kernels = sum(read_counts().values()) - before
+                if kernels != LOAD_REPS:
+                    fail(f"under load ({kind}): {name} launched {kernels} kernels in "
+                         f"{LOAD_REPS} runs, not one a run")
+                rows[name][kind] = dict(launches=LOAD_REPS, differing=bad, first_output=first,
+                                        seconds=round(time.perf_counter() - tc, 4))
+                launches += LOAD_REPS
+                differing += bad
+    out = dict(cases=len(cases), families={f: sum(n.startswith(f + "/") for n in rows)
+                                            for f in sorted(families)},
+               reps=LOAD_REPS, loads=LOADS, launches=launches, differing=differing,
+               plain_seconds=plain_s, seconds=time.perf_counter() - t0, by_case=rows)
+    worst = [f"{n} ({k}: {r['differing']} of {r['launches']}, output {r['first_output']})"
+             for n, row in rows.items() for k, r in row.items() if r["differing"]]
+    if worst:
+        say("under_load_failed", kernels=out)       # every case's counts, then the failure
+        fail(f"under load: {differing} of {launches} launches differ from their plain "
+             f"versions: {worst[:8]}")
+    return out
+
+
+PATH_LOAD_C = 64
+PATH_LOAD_T = 1 << 15
+PATH_LOAD_STEPS = 3
+PATH_LOAD_DECODERS = 8
+
+
+def check_paths_under_load(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays) -> dict:
+    """The whole receive, kernels and the host logic between them, idle and
+    beside each of the LOADS, bit for bit: PATH_LOAD_STEPS blocks of
+    `FusedReceiver.step` at C = 64 x 2^15 from one state (every FrameBatch
+    field, ok, overflow and every leaf of the final RxState), and the same
+    blocks through the split `block_batch` with PATH_LOAD_DECODERS channels
+    on through `StreamDecoder`s (soft symbols, valid, every FrameBatch and
+    the final state).  Covers K3 and the library calls too."""
+    t0 = time.perf_counter()
+    C, T = PATH_LOAD_C, PATH_LOAD_T
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    blocks = [make_block(base, delays[:C], b, gen, length=T) for b in range(PATH_LOAD_STEPS)]
+    rx = FusedReceiver(cfg, dcfg, channels=C, block_len=T)
+    rx_st = rx.init_state()
+    demod = Demodulator(dataclasses.replace(cfg, frontend_kernel="split"), T)
+    split_st = demod.init_state_batch(C)
+
+    frames = []
+
+    def fused() -> list:
+        st, out, n = clone_state(rx_st), [], 0
+        for x in blocks:
+            batch, ok, ovf, st = rx.step(x, st)
+            out += hazard_check.flat((batch, ok, ovf))
+            n += int(ok.sum())
+        frames.append(n)
+        return out + hazard_check.flat(st)
+
+    def split() -> list:
+        st, out = clone_state(split_st), []
+        decoders = [StreamDecoder(DecoderConfig(mode="lrit")) for _ in range(PATH_LOAD_DECODERS)]
+        for x in blocks:
+            soft, valid, st = demod.block_batch(x, st)
+            out += [soft, valid]
+            q = quantize_symbols(soft[:PATH_LOAD_DECODERS]).cpu().numpy()
+            v = valid[:PATH_LOAD_DECODERS].cpu().numpy()
+            for c, sd in enumerate(decoders):
+                out += hazard_check.flat(sd.push(q[c][v[c]]))
+        for sd in decoders:
+            out += hazard_check.flat(sd.flush())
+        return out + hazard_check.flat(st)
+
+    out = {}
+    for name, run in (("fused_step", fused), ("split_block_batch", split)):
+        idle = run()
+        torch.cuda.synchronize()
+        row = dict(outputs=len(idle))
+        for kind in LOADS:
+            with SideLoad(kind):
+                i = hazard_check.first_difference(run(), idle)
+            row[kind] = dict(first_differing_output=i)
+            if i is not None:
+                fail(f"paths under load: {name} beside the {kind} load differs from its idle "
+                     f"run at output {i} of {len(idle)}")
+        out[name] = row
+    out["fused_step"]["frames_each_run"] = frames
+    return dict(shape=[C, T], steps=PATH_LOAD_STEPS, seconds=time.perf_counter() - t0, **out)
+
+
+def under_load_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays) -> dict:
+    """`check_under_load` over every case of `tools/hazard_check`, then
+    `check_paths_under_load`."""
+    t0 = time.perf_counter()
+    kernels = check_under_load(hazard_check.cases())
+    torch.cuda.empty_cache()
+    paths = check_paths_under_load(cfg, dcfg, base, delays)
+    torch.cuda.empty_cache()
+    return dict(kernels=kernels, paths=paths, seconds=time.perf_counter() - t0)
 
 
 def check_onchip_ragged(demod: Demodulator) -> dict:
@@ -1780,7 +1918,7 @@ def check_onchip_ragged(demod: Demodulator) -> dict:
                     # The Costas slab at K = 1 is the exact loop: the exact instance.
                     e = frontend_cuda.demod_frontend(x, *kfe, *fe, precision=prec)
                     out["k1_equal_to_exact"] &= all(
-                        torch.equal(a, b) for a, b in zip(_flat(e), _flat(k)))
+                        torch.equal(a, b) for a, b in zip(hazard_check.flat(e), hazard_check.flat(k)))
                 kfe, pfe = k[1:], p[1:]
             if stages != "both":
                 stage_s += time.perf_counter() - t0
@@ -2244,7 +2382,6 @@ def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdu
     torch.cuda.empty_cache()
     ragged = check_onchip_ragged(main["rx"]._demod)
     edges = check_slab_edges(main["rx"]._demod)
-    loaded = check_frontend_under_load(main["rx"]._demod)
     c_s = time.perf_counter() - t2
 
     steady = float(np.mean(oms[1:ONCHIP_BLOCKS]))
@@ -2264,7 +2401,7 @@ def onchip_phase(cfg: DemodConfig, dcfg: DecoderConfig, base: CF32, delays, vcdu
                       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                       max_abs_err=r["max_abs_err"]) for r in rows],
         ragged_shapes_max_abs_err=ragged, slab_edge_states_max_abs_err=edges,
-        frontend_under_load=loaded, checks_seconds=c_s,
+        checks_seconds=c_s,
         seconds=time.perf_counter() - t0)
     say("k1_forms", card=smi, **k1_forms)
     return rows, dict(fused=fused_counts, split=split_counts, forms=forms["launches"],
@@ -3583,6 +3720,15 @@ def main() -> None:
     if len(slabs) != 20 or any(any(v) for v in slabs.values()):
         fail(f"slab kernels: every instance must build without stack frame or spill: {slabs}")
 
+    if UNDER_LOAD_ONLY:
+        cfg = DemodConfig.lrit(sample_rate=1_250_000)
+        _, _, base = make_streams(cfg)
+        say("under_load", card=smi, **under_load_phase(cfg, DecoderConfig(mode="lrit"), base,
+                                                       channel_delays()))
+        say("total", seconds=time.perf_counter() - t_start, seconds_up_to_each_line=PHASE_S)
+        print(smi, flush=True)
+        return
+
     say("fir", card=smi, **check_fir())
     say("fir_matmul", card=smi, **check_fir_matmul())
     torch.cuda.empty_cache()
@@ -3639,6 +3785,7 @@ def main() -> None:
         int(BLOCK_LEN / cfg.decimation / cfg.sps)))
     del rx, state, main_fills
     torch.cuda.empty_cache()
+    say("under_load", card=smi, **under_load_phase(cfg, dcfg, base, delays))
     say("clock_max_block", card=smi, **clock_max_block_phase(cfg, base, delays, smi))
     torch.cuda.empty_cache()
 

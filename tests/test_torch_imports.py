@@ -76,7 +76,7 @@ def test_importing_the_frontends_loads_no_sdr_library(probe):
     "tools.scaling_sweep", "tools.decode_profile", "tools.decode_bench", "tools.chain_bench",
     "tools.stage_profile", "tools.rx_profile", "tools.clock_bench", "tools.frontend_bench",
     "tools.host_budget_profile", "tools.drive_demod", "tools.seeconstellation",
-    "tools.make_frozen_fixture",
+    "tools.make_frozen_fixture", "tools.hazard_check",
 ])
 def test_kernel_and_entry_modules_import_without_a_gpu_toolchain(probe, module):
     """Each was imported by a process that ends with no `jax`, `jaxlib`,

@@ -17,6 +17,8 @@ the standalone AGC (K5) and Costas loop (K6; its slab form at K = 8,
         [--baseline OTHER/stream.cu]
     python -m xritdemod_tpu_torch.tools.kernel_probe viterbi [--rounds N] [--baseline OTHER/viterbi.cu]
     python -m xritdemod_tpu_torch.tools.kernel_probe ring [--rounds N] [--baseline OTHER/ring.cu]
+    python -m xritdemod_tpu_torch.tools.kernel_probe clock_sinc --variant tails \
+        [--baseline OTHER/clock.cu]      # as shipped and only the variants named so
 
 Times the kernels named on the command line (all by default) at the
 shipped LRIT shape (2048 channels x 131072 samples, a synthetic BPSK-like
@@ -198,9 +200,19 @@ VARIANTS["clock_sinc"] = {
         (("constexpr int SINC_GROUP = 32;", "constexpr int SINC_GROUP = 8;"),
          ("constexpr int SINC_NCHUNK = 16;", "constexpr int SINC_NCHUNK = 8;")),
 }
+# How often a sinc chain warp publishes its tail for the others' bound on
+# their waits (csrc/clock.cu, sinc_bounds): at every chunk it frees, or at
+# every fourth (the others then bound their waits up to 3 chunks lower).
+_SINC_TAILS = {
+    "tails published every 4th chunk":
+        (("if (lane == 0 && tail != tail0) s.tails[warp] = tail;",
+          "if (lane == 0 && (tail >> 2) != (tail0 >> 2)) s.tails[warp] = tail;"),),
+}
+VARIANTS["clock_sinc"].update(_SINC_TAILS)
 VARIANTS["clock_bu_sinc"] = {
     "as shipped": (),
     **_SINC_LAYOUT,
+    **_SINC_TAILS,
     "2 slots interpolated together":
         (("constexpr int SINC_BU_BATCH = 4;", "constexpr int SINC_BU_BATCH = 2;"),),
     "8 slots interpolated together":
@@ -405,12 +417,16 @@ def _same_bits(a: list, b: list) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _build_variants(kernel: str) -> list:
-    """(variant, library) for each of VARIANTS[kernel], the builds in parallel."""
+def _build_variants(kernel: str, only: tuple | None = None) -> list:
+    """(variant, library) for each of VARIANTS[kernel] (with `only`, the one
+    as shipped and those whose names start with one of `only`), the builds
+    in parallel."""
     library = LIBRARY[kernel]
+    variants = [(what, edits) for what, edits in VARIANTS[kernel].items()
+                if only is None or what == "as shipped" or what.startswith(only)]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         futs = [(what, pool.submit(_build.build_variant, library, f"{kernel}_{i}", (), edits))
-                for i, (what, edits) in enumerate(VARIANTS[kernel].items())]
+                for i, (what, edits) in enumerate(variants)]
         return [(what, f.result()) for what, f in futs]
 
 
@@ -611,6 +627,11 @@ def main() -> None:
         i = args.index("--rounds")
         rounds = int(args[i + 1])
         del args[i : i + 2]
+    only = None
+    while "--variant" in args:
+        i = args.index("--variant")
+        only = (only or ()) + (args[i + 1],)
+        del args[i : i + 2]
     kernels = args or list(VARIANTS)
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -683,7 +704,7 @@ def main() -> None:
               if lib in _ENTRY and lib != "ring"}
     for kernel in kernels:
         library = LIBRARY[kernel]
-        libs = _build_variants(kernel)
+        libs = _build_variants(kernel, only)
         if library in others:
             libs.append((f"baseline {kinds[library]}", others[library]))
         shapes = clock_shapes if kernel in CLOCKS else {(CHANNELS, BLOCK_LEN): False}
