@@ -6,10 +6,15 @@
                                      # and which warp of K1, K2, K5, K6 sets their time
     python3 chip_smoke.py --under-load   # the build and the `under_load` phase alone
 
-Builds the six CUDA libraries from `xritdemod_tpu_torch/csrc/` (and the apps'
+Builds the eight CUDA libraries from `xritdemod_tpu_torch/csrc/` (and the apps'
 host library, `runtime/native.py`, whose failure it reports), holds every
 kernel against its plain PyTorch version on the card at the shapes its path
-gives it (the front end and the clock, both of its interpolators, over two
+gives it (the RS decoder, K8, on the fused step's 4 x 2048 codewords on noise
+and clean, at every Kmax of the plain route, on the edge words of
+`tools/edge_cases.py` and at 1, 3, 33 rows; the acquisition, K9, on C = 2048
+rings of the fused step's length with all, half and no channels unlocked,
+float32 and bf16, their edge channels at the generator's positions, and at
+1 and 17 channels) (the front end and the clock, both of its interpolators, over two
 chained blocks, each version carrying its own state) and at small ragged
 shapes (also: the clock where channels stand further apart than its
 shared-memory ring, the sinc clock from edge states of mu and at one
@@ -27,7 +32,10 @@ C = 2048 channels x 131072 samples per block, on synthesised captures:
 
   - the fused receive, `FusedReceiver.step` and one block of `step_int8`;
     one steady block also through `step_cl` as its `(T, C)` transpose,
-    from a copy of the same state, bit-equal to `step`;
+    from a copy of the same state, bit-equal to `step`; every step after
+    the first under `torch.cuda.set_sync_debug_mode("error")`: a steady
+    step makes no synchronising call (the acquisition and the RS decoder
+    decide on the device);
   - the split receive, `Demodulator(frontend_kernel="split").block_batch`
     -> `quantize_symbols` -> int8 symbols -> one `StreamDecoder` per channel
     for 16 of the channels;
@@ -65,9 +73,9 @@ LRIT stream through the serial `Demodulator.process` -> `StreamDecoder`,
 per interpolator (its first block's kernels held against their plain
 versions at one channel); `CaduDecoder.decode_multi` at 2048 x 8 frames
 against sequential `decode_frames` (its one Viterbi launch against the plain
-decoder); the RS decoder's branches in `decode_frames` at 2048 frames (the
-sparse and the full branch against XRIT_RS_SPARSE=0, every field equal, the
-host reads of each call counted); the apps, the entry points a user starts: the two-process
+decoder); the RS decoder in `decode_frames` at 2048 frames (the kernel
+against the plain route's sparse, full and errored-rows branches, every
+field equal; the kernel's route makes no host read); the apps, the entry points a user starts: the two-process
 interop (`tools/interop_run.py`: `cli decode` and `cli demod` over loopback
 on 30 s of LRIT at 1.25 Msps, every frame checked on the vchannel port and
 the statistics stream parsed), `ReceiverApp` at the config loader's default
@@ -143,8 +151,8 @@ from xritdemod_tpu_torch.ops import costas as costas_op
 from xritdemod_tpu_torch.ops import scan as scan_op
 from xritdemod_tpu_torch.ops import viterbi as viterbi_op
 from xritdemod_tpu_torch.ops import (
-    clock_cuda, filters, fir, frontend_cuda, reed_solomon, ring_cuda, stream_cuda,
-    viterbi_cuda,
+    acquire_cuda, clock_cuda, correlator, filters, fir, frontend_cuda, reed_solomon, ring_cuda,
+    rs_cuda, stream_cuda, viterbi_cuda,
 )
 from xritdemod_tpu_torch.ops.clock_recovery import NTAIL
 from xritdemod_tpu_torch.parallel import distributed as pdist
@@ -155,7 +163,7 @@ from xritdemod_tpu_torch.runtime.config import demod_config_from_file
 from xritdemod_tpu_torch.runtime import native
 from xritdemod_tpu_torch.runtime.frontends import CFileFrontend
 from xritdemod_tpu_torch.tools import (
-    dist_worker, hazard_check, interop_run, long_soak, roll_probe, timing,
+    dist_worker, edge_cases, hazard_check, interop_run, long_soak, roll_probe, timing,
 )
 from xritdemod_tpu_torch.utils.cplx import (
     CF32, dequantize_iq_s8, from_complex, quantize_iq_s8, to_complex,
@@ -626,6 +634,146 @@ def check_kernels(rx: FusedReceiver, x0: CF32, x1: CF32, vcdus,
         windows=NW, steps=Lw,
     ))
     return rows
+
+
+RS_ROWS = 4 * CHANNELS         # the fused step's codewords: 4 a frame, a frame a channel
+RS_RAGGED = (1, 3, 33)
+RS_EDGE_ROWS = 1024            # the edge words in one batch, at the automatic Kmax 128
+RS_SPARSE = (0, 4, None)       # the plain route's Kmax: its rows, its sparse and full branches
+RS_TABLE_BYTES = rs_cuda.TABLE_BYTES
+
+
+def rs_bound(rows: int, errored: int):
+    """K8's least time for `rows` codewords of which `errored` are corrected:
+    bytes, each codeword in and out, the nerr word and the tables once; table
+    multiply-adds (two operations each, against the float32 rate) of the
+    syndromes (32 x 255 a codeword) and, for an errored codeword,
+    Berlekamp-Massey (32 x 33 x 2), Omega (528), Chien with Lambda' and
+    Forney (255 x 81)."""
+    ops = 2.0 * (rows * 32 * 255 + errored * (32 * 33 * 2 + 528 + 255 * 81))
+    return bound(rows * (2 * 255 + 4) + RS_TABLE_BYTES, ops)
+
+
+def check_rs() -> dict:
+    """K8 against the plain route on the card, bit for bit: the fused step's
+    4 x 2048 codewords on noise (random words: every one errored and
+    uncorrectable) and on clean frames (codewords), each at every Kmax of
+    RS_SPARSE (the plain route's errored rows, its sparse and its full
+    branch); the edge words of `tools/edge_cases.py` (16 and 17 errors,
+    parity only, the end bytes, all-zero and all-0xFF words, a
+    miscorrection, random and length-18 words) in a batch of 1024; the
+    ragged batches of 1, 3 and 33 rows.  Times: the kernel on noise and on
+    clean frames, the plain route's errored rows (Kmax 0) on each."""
+    rng = np.random.default_rng(SEED + 80)
+    noise = torch.from_numpy(rng.integers(0, 256, (RS_ROWS, 255), dtype=np.int64)
+                             .astype(np.uint8)).to(DEV)
+    clean = torch.from_numpy(reed_solomon.rs_encode_np(
+        rng.integers(0, 256, (RS_ROWS, 223), dtype=np.int64).astype(np.uint8))).to(DEV)
+    cases = edge_cases.rs_edge_cases(SEED + 81)
+    edges = torch.from_numpy(edge_cases.rs_batch(cases, RS_EDGE_ROWS, SEED + 82)).to(DEV)
+    mixed = torch.cat([edges[:40], noise[:8], clean[:8]])
+    out = dict(cases={})
+
+    def held(name, x, sparse=RS_SPARSE):
+        k = rs_cuda.rs_decode_kernel(x)
+        for sm in sparse:
+            p = reed_solomon.rs_decode_plain(x, sm)
+            if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
+                fail(f"rs: the kernel differs from the plain route (Kmax {sm}) on {name}")
+        out["cases"][name] = dict(rows=int(x.shape[0]), corrected=int((k[1] > 0).sum()),
+                                  failed=int((k[1] < 0).sum()))
+        return k
+
+    kn = held("noise", noise)
+    held("clean", clean)
+    held("edges", edges)
+    for B in RS_RAGGED:
+        held(f"ragged_{B}", mixed[:B].contiguous(), (0, None))
+    if out["cases"]["clean"]["corrected"] or out["cases"]["clean"]["failed"]:
+        fail(f"rs: clean codewords corrected or failed: {out['cases']['clean']}")
+    ms = time_ms(lambda: rs_cuda.rs_decode_kernel(noise), 20)
+    clean_ms = time_ms(lambda: rs_cuda.rs_decode_kernel(clean), 20)
+    _, plain_ms = once_ms(lambda: reed_solomon.rs_decode_plain(noise, 0))
+    _, plain_clean_ms = once_ms(lambda: reed_solomon.rs_decode_plain(clean, 0))
+    errored = int((kn[1] != 0).sum())
+    bms, by = rs_bound(RS_ROWS, errored)
+    cbms, cby = rs_bound(RS_ROWS, 0)
+    return dict(
+        name="rs", route="cuda", source="xritdemod_tpu_torch/csrc/rs.cu",
+        replaces="xritdemod_tpu/ops/reed_solomon.py:313",
+        replaces_kind="rs_decode with _rs_correct (:313-518): an XLA program (lax.scan, "
+                      "lax.cond), no pl.pallas_call",
+        max_abs_err=0.0, tolerance="exact, every Kmax of the plain route", ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None, rows=RS_ROWS,
+        errored_rows=errored, clean_ms=clean_ms, clean_plain_ms=plain_clean_ms,
+        clean_bound_ms=cbms, clean_bound_by=cby, **out)
+
+
+ACQ_SEED = SEED + 90
+
+
+def check_acquire(rx: FusedReceiver) -> dict:
+    """K9 against its plain version on the card, bit for bit, on the fused
+    step's rings (C = 2048, its ring length) from `tools/edge_cases.py`
+    (its edge channels first: a sync at lag 0 and at the last lag, both
+    words, ties between words and between lags, -0.0 symbols, a word below
+    the threshold; the rest a sync at a random lag or noise), float32 and
+    bf16, with all, half and no channels unlocked; the edge channels'
+    positions as the generator places them; the ragged C = 1 and 17.
+    Times: the kernel and the plain version in each case."""
+    C, L, window = CHANNELS, rx.ring_len, rx._acq
+    words = rx.decoder_config.uws
+    thresh = rx.decoder_config.min_correlation_bits
+    lags = window - correlator.UW_BITS + 1
+    tpl = rx._templates
+    soft = torch.from_numpy(edge_cases.acquire_ring(C, words, lags, ACQ_SEED)).to(DEV)
+    ring = torch.zeros((C, L), device=DEV)
+    ring[:, : soft.shape[1]] = soft
+    del soft
+    lockings = dict(all_unlocked=torch.zeros(C, dtype=torch.bool, device=DEV),
+                    half_unlocked=torch.arange(C, device=DEV) % 2 == 1,
+                    none_unlocked=torch.ones(C, dtype=torch.bool, device=DEV))
+    want_edges = [0, lags - 1, lags // 2 + 17, 5000, 300, 40, 0, 0, 1]
+    cases = {}
+    for dt in (torch.float32, torch.bfloat16):
+        r = ring.to(dt)
+        esize = r.element_size()
+        for name, locked in lockings.items():
+            args = (r, locked, tpl, window, thresh)
+            k = acquire_cuda.acquire_positions(*args)
+            correlator.acquire_positions_plain(*args)        # cuDNN's choice made
+            p, plain_ms = once_ms(lambda: correlator.acquire_positions_plain(*args))
+            if not torch.equal(k, p):
+                fail(f"acquire ({name}, {dt}): the kernel differs from its plain version")
+            if name == "all_unlocked" and k[1:edge_cases.EDGE_CHANNELS].tolist() != want_edges:
+                fail(f"acquire ({dt}): edge channels at {k[:edge_cases.EDGE_CHANNELS].tolist()}")
+            unlocked = int((~locked).sum())
+            bms, by = bound(unlocked * window * esize + 5 * C, 4.0 * unlocked * lags * len(words))
+            cases[f"{name}_{str(dt).replace('torch.', '')}"] = dict(
+                unlocked=unlocked, ms=time_ms(lambda: acquire_cuda.acquire_positions(*args), 20),
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, synced=int((k != 0).sum()))
+        for Cr in (1, 17):
+            sub = r[:Cr].contiguous()
+            lk = torch.zeros(Cr, dtype=torch.bool, device=DEV)
+            if not torch.equal(acquire_cuda.acquire_positions(sub, lk, tpl, window, thresh),
+                               correlator.acquire_positions_plain(sub, lk, tpl, window, thresh)):
+                fail(f"acquire (C = {Cr}, {dt}): the kernel differs from its plain version")
+    # The nearest PyTorch call: one convolution of the ring's signs (made
+    # beforehand) with the templates gives the counts, not the first best
+    # lag, the threshold or the lock select.
+    signs = torch.where(ring[:, None, :window] < 0, -1.0, 1.0)
+    near = time_ms(lambda: F.conv1d(signs, tpl[:, None, :]), 20)
+    main = cases["all_unlocked_float32"]
+    return dict(
+        name="acquire", route="cuda", source="xritdemod_tpu_torch/csrc/acquire.cu",
+        replaces="xritdemod_tpu/models/receiver.py:164",
+        replaces_kind="do_acq under lax.cond, the threshold and the lock select (:164-191): "
+                      "an XLA program, no pl.pallas_call",
+        max_abs_err=0.0, tolerance="exact", ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+        steady_ms=cases["none_unlocked_float32"]["ms"], channels=C, cases=cases,
+        nearest_library_call=dict(call="F.conv1d of the window's signs with the templates "
+                                  "(the counts only)", ms=near))
 
 
 # (channels, samples) of the small blocks: one channel (the serial path's
@@ -1136,9 +1284,11 @@ FRONTEND_FORMS = timing.FRONTEND_FORMS
 
 
 # Which kernels each path must launch, and none of the others.
-MAIN_PATH_KERNELS = ("frontend", "clock", "viterbi", "ring_append", "ring_extract")
-SPLIT_PATH_KERNELS = ("agc_block", "costas_block", "clock", "viterbi")
-SINC_PATH_KERNELS = ("frontend", "clock_sinc", "viterbi", "ring_append", "ring_extract")
+MAIN_PATH_KERNELS = ("frontend", "clock", "viterbi", "ring_append", "ring_extract", "rs",
+                     "acquire")
+SPLIT_PATH_KERNELS = ("agc_block", "costas_block", "clock", "viterbi", "rs")
+SINC_PATH_KERNELS = ("frontend", "clock_sinc", "viterbi", "ring_append", "ring_extract", "rs",
+                     "acquire")
 
 
 def check_counts(path: str, counts: dict, expected: tuple) -> None:
@@ -1175,18 +1325,39 @@ def same_state(a, b) -> bool:
     return len(ka) == len(kb) and all(same_state(x, y) for x, y in zip(ka, kb))
 
 
+class no_host_sync:
+    """Inside the block, a CUDA call that makes the host wait for the device
+    (a read back, a copy from pageable memory, a synchronize) raises
+    (`torch.cuda.set_sync_debug_mode("error")`); a raise fails `what`."""
+
+    def __init__(self, what: str):
+        self.what = what
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, kind, err, tb):
+        torch.cuda.set_sync_debug_mode("default")
+        if kind is RuntimeError and "synchroniz" in str(err):
+            fail(f"{self.what}: a synchronising CUDA call in a steady step: {err}")
+        return False
+
+
 def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
               blocks: int = BLOCKS, int8_blocks: int = INT8_BLOCKS, label: str = "main_path",
               expected: tuple = MAIN_PATH_KERNELS, cl_block: int | None = None,
               per_block: list | None = None, fills: list | None = None):
     """`blocks` blocks through `step`, then `int8_blocks` through
-    `step_int8`, every popped frame held against what was transmitted; the
-    path must launch the `expected` kernels and no other.  With `cl_block`,
-    that block also goes through `step_cl`, as a transposed `(T, C)` copy
-    from a copy of the same state, which must give the same outputs and
-    state as `step`, bit for bit.  A list passed as `per_block` receives the
-    frames recovered in each block, one passed as `fills` the rings' fill
-    counts after each block."""
+    `step_int8` (its int8 block copied to the card before the step), every
+    popped frame held against what was transmitted; the path must launch the
+    `expected` kernels and no other.  Every block after the first (which
+    copies the decoder's tables to the card) runs under `no_host_sync`: a
+    steady step makes no synchronising call.  With `cl_block`, that block
+    also goes through `step_cl`, as a transposed `(T, C)` copy from a copy of
+    the same state, under `no_host_sync` too, which must give the same
+    outputs and state as `step`, bit for bit.  A list passed as `per_block`
+    receives the frames recovered in each block, one passed as `fills` the
+    rings' fill counts after each block."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     by_counter = [
         {1000 * (s + 1) + i: v[i].tobytes() for i in range(len(v))}
@@ -1203,27 +1374,35 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
     ms = []                                  # per block, `step` and `step_int8` alike
     cl = None
     vit_err, rs_fixed = [], 0
+    steady_checked: list = []                # steps run under `no_host_sync`
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     for b in range(blocks + int8_blocks):
         int8 = b >= blocks
         x = make_block(base, delays, b, gen)
         if int8:
-            x = quantize_block(x)
+            x = torch.from_numpy(quantize_block(x)).to(DEV)
         was_locked = state.locked.cpu().numpy()
         if b == cl_block:
             x_cl, xT, st_cl = x, CF32(x.re.t().contiguous(), x.im.t().contiguous()), \
                 clone_state(state)
         a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        batch, ok, ovf, state = rx.step_int8(x, state) if int8 else rx.step(x, state)
+        if b:
+            with no_host_sync(f"{label}: {'step_int8' if int8 else 'step'}, block {b}"):
+                batch, ok, ovf, state = rx.step_int8(x, state) if int8 else rx.step(x, state)
+            steady_checked.append("step_int8" if int8 else "step")
+        else:
+            batch, ok, ovf, state = rx.step(x, state)
         e.record()
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(e))
         del x
         if b == cl_block:
             a.record()
-            out_cl = rx.step_cl(xT, st_cl)
+            with no_host_sync(f"{label}: step_cl, block {b}"):
+                out_cl = rx.step_cl(xT, st_cl)
+            steady_checked.append("step_cl")
             e.record()
             torch.cuda.synchronize()
             cl = dict(block=b, ms=a.elapsed_time(e), step_ms=ms[-1],
@@ -1318,6 +1497,7 @@ def main_path(rx: FusedReceiver, base: CF32, delays, vcdus, esn0_db: float,
         peak_memory_bytes=peak, launches=counts,
         clock_symbols_read_outside_the_ring=out_of_ring,
         step_cl=cl,
+        steps_without_a_synchronising_call=sorted(set(steady_checked)),
     )
     say(label, **line)
     if cl_block is not None and not (cl and cl["equal"]):
@@ -1553,8 +1733,8 @@ ONCHIP_BLOCKS = 5          # `step`: one warm-up and four steady blocks; then on
 ONCHIP_K = 8               # frontend_block_update, the JAX package's on-chip K
 ONCHIP_CLOCK_K = 16        # clock_block_update of the split path's run
 ONCHIP_FUSED_KERNELS = ("frontend_bk8_bf16", "clock", "viterbi", "ring_append_bf16",
-                        "ring_extract_bf16")
-ONCHIP_SPLIT_KERNELS = ("agc_block", "costas_slab", "clock_bu", "viterbi")
+                        "ring_extract_bf16", "rs", "acquire")
+ONCHIP_SPLIT_KERNELS = ("agc_block", "costas_slab", "clock_bu", "viterbi", "rs")
 ONCHIP_FORMS_KERNELS = ("frontend_bk8", "frontend_bf16", "clock", "clock_bu_sinc")
 ONCHIP_FORMS_BLOCKS = 2
 RAGGED_K_FRONT = (1, 4, 8, 16, 64)     # K1's and K6's slabs on the ragged shapes
@@ -1691,6 +1871,12 @@ def check_slab_edges(demod: Demodulator) -> dict:
 HAZARD_EXEMPT = {
     "viterbi_kernel": "one warp of 32 threads a block (__launch_bounds__(32)): no hand-off "
                       "between warps or blocks; `check_paths_under_load` runs it on both paths",
+    "rs_decode_kernel": "one warp of 32 threads a block (__launch_bounds__(32)), a codeword a "
+                        "warp: no hand-off between warps or blocks; `check_paths_under_load` "
+                        "runs it on both paths",
+    "acquire_kernel": "one warp of 32 threads a block (__launch_bounds__(32)), a channel a "
+                      "warp: no hand-off between warps or blocks; `check_paths_under_load` "
+                      "runs it on the fused path",
     "trig_check_kernel": "a check of the Costas step's sine and cosine, not a stage",
     "large_trig_check_kernel": "a check of the slab walks' large-argument sine, not a stage",
     "sinc_tap_check_kernel": "a check of the sinc clock's branch-free taps, not a stage",
@@ -2562,7 +2748,7 @@ def kat_phase(smi: str) -> dict:
                                                     max_abs_err=max(errs))
     counts = read_counts()
     check_counts("kat phase", counts, ("frontend", "clock", "clock_sinc", "agc_block",
-                                       "costas_block", "viterbi"))
+                                       "costas_block", "viterbi", "rs"))
     return dict(card=smi, tolerance="as tests/test_demod_kat.py: equal symbol counts, atol "
                 "2e-3, hard decisions equal where |soft| > 2e-2", launches=counts, **out)
 
@@ -2670,7 +2856,7 @@ def serial_path(smi: str) -> None:
                  "delivered")
         check_counts(f"serial path ({interp})", r["launches"],
                      ("agc_block", "costas_block", "clock" if interp == "mmse" else "clock_sinc",
-                      "viterbi"))
+                      "viterbi", "rs"))
 
 
 # --------------------------------------------------------------------------
@@ -2682,7 +2868,7 @@ APPS_RX_S = 10.0         # each of LRIT and HRIT at 3 Msps through ReceiverApp
 APPS_PAD_BLOCKS = 8      # DemodulatorApp blocks, batch_pad 128 against 0
 APPS_PAD = 128
 APPS_PAD_ORDER = (0, APPS_PAD, APPS_PAD, 0, 0, APPS_PAD)   # alternated, against warm-up
-APPS_KERNELS = ("agc_block", "costas_block", "clock", "viterbi")
+APPS_KERNELS = ("agc_block", "costas_block", "clock", "viterbi", "rs")
 
 
 def free_ports(n: int) -> list[int]:
@@ -2969,7 +3155,7 @@ def decode_multi_phase(vcdus, smi: str) -> dict:
     out["sequential_decode_frames_ms"] = time_ms(sequential, 3)
     out["decode_multi_device_busy_ms"] = device_busy_ms(multi)
     out["sequential_decode_frames_device_busy_ms"] = device_busy_ms(sequential)
-    check_counts("decode_multi", counts, ("viterbi",))
+    check_counts("decode_multi", counts, ("viterbi", "rs"))
     if counts["viterbi"] != 1:
         fail(f"decode_multi launched the Viterbi kernel {counts['viterbi']} times, not once")
     return dict(card=smi, streams=B, frames_per_stream=F, frames=B * F, frames_ok=ok,
@@ -2988,16 +3174,18 @@ RS_FEW, RS_MANY = 16, 256    # frames with an error burst: 4 codewords each
 
 
 def rs_sparse_phase(vcdus, smi: str) -> dict:
-    """The RS decoder's branches inside `CaduDecoder.decode_frames` at
-    B = 2048 frames (8192 codewords, the automatic Kmax 512): the same
-    frames with an error burst (600 coded symbols of noise) in RS_FEW
-    frames (at most Kmax codewords in error: the sparse branch) and in
-    RS_MANY (more than Kmax: every row corrected), each decoded with the
-    automatic Kmax and with XRIT_RS_SPARSE=0 (the errored rows, found by a
-    variable-length read).  Every `FrameBatch` field must be equal between
-    the two; each case's errored codewords must fall on its side of Kmax.
-    Prints the times of `decode_frames` and, counted with CUDA's
-    synchronisation debug mode, the host reads of each `rs_decode` call."""
+    """The RS decoder inside `CaduDecoder.decode_frames` at B = 2048 frames
+    (8192 codewords, the automatic Kmax 512): the same frames with an error
+    burst (600 coded symbols of noise) in RS_FEW frames (at most Kmax
+    codewords in error: the plain route's sparse branch) and in RS_MANY
+    (more than Kmax: its full branch), each decoded through the kernel (K8)
+    and through the plain route (`rs_decode_plain`) with the automatic Kmax
+    and with XRIT_RS_SPARSE=0 (its errored rows, found by a variable-length
+    read).  Every `FrameBatch` field must be equal between the three; each
+    case's errored codewords must fall on its side of Kmax; the plain route
+    must take its branch.  Prints the times of `decode_frames` and, counted
+    with CUDA's synchronisation debug mode, the host reads of each
+    `rs_decode` call: the kernel's route must make none."""
     B = CHANNELS
     per = []
     for s in range(STREAMS):
@@ -3010,7 +3198,8 @@ def rs_sparse_phase(vcdus, smi: str) -> dict:
     tails = torch.zeros((B, 64), device=DEV)
     dec = CaduDecoder(DecoderConfig(mode="lrit"))
     kmax = reed_solomon._default_sparse_max(4 * B)
-    rs_call = reed_solomon.rs_decode_frame
+    rs_call, rs_route = reed_solomon.rs_decode_frame, reed_solomon.rs_decode
+    plain_route = lambda x, sparse_max=None: reed_solomon.rs_decode_plain(x, sparse_max)
     reads: list = []
 
     def counted(frames):
@@ -3031,33 +3220,42 @@ def rs_sparse_phase(vcdus, smi: str) -> dict:
         hit = torch.randperm(B, generator=gen, device=DEV)[:nburst]
         frames[hit, 2000:2600] = torch.randn((nburst, 600), generator=gen, device=DEV)
         res = {}
-        for mode in ("auto", "off"):
-            os.environ["XRIT_RS_SPARSE"] = "1" if mode == "auto" else "0"
+        for mode in ("kernel", "auto", "off"):
+            os.environ["XRIT_RS_SPARSE"] = "0" if mode == "off" else "1"
+            route = rs_route if mode == "kernel" else plain_route
             before = dict(reed_solomon.branches)
-            reed_solomon.rs_decode_frame, reads[:] = counted, []
+            launched = rs_cuda.launches
+            reed_solomon.rs_decode_frame, reed_solomon.rs_decode, reads[:] = counted, route, []
             try:
                 batch, _ = dec.decode_frames(frames, tails)
-            finally:
+                took = {k: v - before[k] for k, v in reed_solomon.branches.items()
+                        if v != before[k]}
                 reed_solomon.rs_decode_frame = rs_call
-            took = {k: v - before[k] for k, v in reed_solomon.branches.items() if v != before[k]}
-            ms = time_ms(lambda: dec.decode_frames(frames, tails), 5)
-            res[mode] = dict(batch=batch, ms=ms, host_reads_per_rs_call=list(reads),
-                             branch=took)
+                ms = time_ms(lambda: dec.decode_frames(frames, tails), 5)
+            finally:
+                reed_solomon.rs_decode_frame, reed_solomon.rs_decode = rs_call, rs_route
+            res[mode] = dict(batch=batch, ms=ms, host_reads_per_rs_call=reads[:1],
+                             branch=took, kernel_launches=rs_cuda.launches - launched)
         os.environ.pop("XRIT_RS_SPARSE", None)
-        a, b = res["auto"]["batch"], res["off"]["batch"]
-        for f in a._fields:
-            if not same_state(getattr(a, f), getattr(b, f)):
-                fail(f"rs sparse ({name}): FrameBatch.{f} differs with the sparse path off")
+        a = res["kernel"]["batch"]
+        for mode in ("auto", "off"):
+            b = res[mode]["batch"]
+            for f in a._fields:
+                if not same_state(getattr(a, f), getattr(b, f)):
+                    fail(f"rs sparse ({name}): FrameBatch.{f} of the kernel differs from the "
+                         f"plain route's ({mode})")
         errored = int((a.rs_errors != 0).sum())
         if (name == "few") != (0 < errored <= kmax) or errored == 0:
             fail(f"rs sparse ({name}): {errored} errored codewords against Kmax {kmax}")
         want = "sparse" if name == "few" else "full"
-        if res["auto"]["branch"] != {want: 1} or res["off"]["branch"] != {"rows": 1}:
-            fail(f"rs sparse ({name}): branches {res['auto']['branch']} and "
-                 f"{res['off']['branch']}")
-        if res["auto"]["host_reads_per_rs_call"] != [1]:
-            fail(f"rs sparse ({name}): {res['auto']['host_reads_per_rs_call']} host reads in "
-                 "one rs_decode call, not one")
+        if res["kernel"]["branch"] or res["auto"]["branch"] != {want: 1} \
+                or res["off"]["branch"] != {"rows": 1}:
+            fail(f"rs sparse ({name}): branches {res['kernel']['branch']}, "
+                 f"{res['auto']['branch']} and {res['off']['branch']}")
+        if res["kernel"]["host_reads_per_rs_call"] != [0] or res["kernel"]["kernel_launches"] < 1:
+            fail(f"rs sparse ({name}): the kernel's route made "
+                 f"{res['kernel']['host_reads_per_rs_call']} host reads in one rs_decode call "
+                 f"(wanted none) and {res['kernel']['kernel_launches']} launches")
         out[name] = dict(
             burst_frames=nburst, errored_codewords=errored,
             frames_ok=int(a.frame_ok.sum()),
@@ -3081,7 +3279,7 @@ TB_BLOCK = 1 << 19
 TB_BLOCKS = 4
 TB_LANE_TOL = 5e-4        # batched time-block rows against one-lane `process`: the serial tolerance
 PARALLEL_KERNELS = ("frontend", "clock", "viterbi", "ring_append", "ring_extract",
-                    "agc_block", "costas_block")
+                    "agc_block", "costas_block", "rs", "acquire")
 
 
 def start_parallel_captures() -> dict:
@@ -3451,8 +3649,9 @@ TOOL_KERNELS = {
     "interp_margin": ("frontend", "clock", "clock_sinc", "ring_append", "ring_extract",
                       "viterbi"),
     "scaling_sweep": ("frontend", "clock"),
-    "rx_profile": ("frontend", "clock", "ring_append", "ring_extract", "viterbi"),
-    "decode_profile": ("viterbi",),
+    "rx_profile": ("frontend", "clock", "ring_append", "ring_extract", "viterbi", "rs",
+                   "acquire"),
+    "decode_profile": ("viterbi", "rs"),
     "decode_bench": ("viterbi",),
     "chain_bench": ("agc_block", "costas_block", "clock"),
     "stage_profile": ("frontend", "clock_sinc"),
@@ -3752,6 +3951,9 @@ def main() -> None:
     say("viterbi", windows=k3["windows"], steps=k3["steps"], lanes=k3["lanes"],
         decision_traffic_floor_ms=2 * 8.0 * k3["windows"] * k3["steps"] / PEAK_BYTES * 1e3)
     torch.cuda.empty_cache()
+    rows.append(check_rs())
+    rows.append(check_acquire(rx))
+    torch.cuda.empty_cache()
     rows.append(check_roll())
     say("kernels", card=smi, ragged_shapes_max_abs_err=check_ragged(rx), kernels=[
         dict(name=r["name"], max_abs_err=r["max_abs_err"], tolerance=r["tolerance"],
@@ -3864,7 +4066,8 @@ def main() -> None:
     say("total", seconds=time.perf_counter() - t_start, seconds_up_to_each_line=PHASE_S)
     print(smi, flush=True)
     extra = ("launches_split_path", "launches_apps", "launches_parallel", "launches_tools",
-             "lanes", "split_shapes", "form", "path", "exact_ms", "split_shape", "steady")
+             "lanes", "split_shapes", "form", "path", "exact_ms", "split_shape", "steady",
+             "replaces_kind", "clean_ms", "clean_bound_ms", "errored_rows", "steady_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows + onchip_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -260,7 +260,7 @@ def test_runtime_copies_match(name):
 _LAUNCHERS = {
     "ops/frontend_cuda.py": 3, "ops/clock_cuda.py": 2, "ops/viterbi_cuda.py": 1,
     "ops/ring_cuda.py": 2, "ops/stream_cuda.py": 2, "tools/roll_probe.py": 1,
-    "tools/kernel_probe.py": 2,
+    "tools/kernel_probe.py": 2, "ops/rs_cuda.py": 1, "ops/acquire_cuda.py": 1,
 }
 
 

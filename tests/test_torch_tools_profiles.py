@@ -57,7 +57,8 @@ _STAGED = {"card", "device", "ms", "launches", "whole", "whole_ms", "stage_sum_m
 
 @pytest.mark.parametrize("tool, argv, env, keys, stages", [
     (decode_profile, ["1", "1"], {}, _STAGED | {"B", "stages_of_whole"},
-     {"full decode_frames", "viterbi plain (S=1)", "viterbi segmented S=2",
+     {"full decode_frames", "full decode_frames (clean frames)", "viterbi plain (S=1)",
+      "viterbi segmented S=2",
       "viterbi segmented S=4", "viterbi segmented S=8", "viterbi segmented S=16",
       "viterbi segmented S=4 overlap=64", "viterbi segmented S=4 overlap=96", "pack_bits",
       "nrzm_decode_bytes", "derandomize", "rs_decode_frame (errored path)",

@@ -26,7 +26,7 @@ from pathlib import Path
 __all__ = ["KERNELS", "build_all", "load", "build_dir", "build_variant", "using",
            "stage_clocks", "check", "launch_on"]
 
-KERNELS = ("frontend", "clock", "viterbi", "ring", "stream", "roll")
+KERNELS = ("frontend", "clock", "viterbi", "ring", "stream", "roll", "rs", "acquire")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _NVCC_FLAGS = [

@@ -7,12 +7,16 @@ Counterpart of `xritdemod_tpu/models/receiver.py` (`step`, the channels-last
   demod chain (front-end kernel + clock kernel)
     -> per-channel symbol ring (ops/ring_cuda.py — append at the fill
        offset, frame-aligned pop at the sync position)
-    -> per-channel sync acquisition (one batched UW correlation + argmax)
+    -> per-channel sync acquisition (ops/acquire_cuda.py — one launch; a
+       locked channel reads its flag, an unlocked one correlates its ring)
     -> k frame extractions per block, each decoded by the batched FEC stack
        (Viterbi -> NRZ-M -> derandomize -> RS) with per-channel Viterbi tails
 
 with a small carried state (demod state, ring, fill, lock flags, tails).
 Soft symbols never visit the host; the host sees decoded VCDUs and stats.
+On the card a step reads nothing back to the host: the acquisition and the
+RS decoder (ops/rs_cuda.py) decide on the device, as the reference's jitted
+step does with its `lax.cond`s, so a step only queues work.
 
 Lock state machine (per channel) mirrors the reference flywheel: unlocked ->
 full-window correlation picks pos; a frame is popped at pos and decoded; its
@@ -32,6 +36,7 @@ from xritdemod_tpu_torch import constants as C
 from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig, stack_batches
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, DemodState
 from xritdemod_tpu_torch.ops import correlator as corr_op
+from xritdemod_tpu_torch.ops.acquire_cuda import acquire_positions
 from xritdemod_tpu_torch.ops.ring_cuda import ring_append, ring_extract
 from xritdemod_tpu_torch.utils.cplx import CF32, dequantize_iq_s8, from_complex
 
@@ -117,10 +122,14 @@ class FusedReceiver:
             tails=torch.zeros((Cn, C.LAST_FRAME_DATA_BITS), dtype=torch.float32, device=dev),
         )
 
-    def _acquire(self, ring: torch.Tensor):
-        counts = corr_op.correlate(ring[:, : self._acq].float(), self._templates)
-        corr, _, p = corr_op.best_correlation(counts)
-        return corr, p
+    def _acquire(self, ring: torch.Tensor, locked: torch.Tensor) -> torch.Tensor:
+        """Each channel's extraction position: 0 for a locked channel; for
+        an unlocked one the sync's lag in the ring's first frame of lags, or
+        0 with no sync there (the reference flywheel's blind drop of ONE
+        frame: a noise argmax would overshoot past an upcoming sync and
+        swallow the head of the first real frame)."""
+        return acquire_positions(ring, locked, self._templates, self._acq,
+                                 self.decoder_config.min_correlation_bits)
 
     def _after_demod(self, demod_out, st: RxState):
         soft, valid, dstate = demod_out
@@ -137,29 +146,16 @@ class FusedReceiver:
         n_new = valid.sum(-1).to(torch.int32)
         ring, fill, ovf = ring_append(st.ring, st.fill, soft, n_new)
         locked, tails = st.locked, st.tails
-        Cn = ring.shape[0]
-        thresh = self.decoder_config.min_correlation_bits
-        zero_pos = torch.zeros((Cn,), dtype=torch.int32, device=ring.device)
 
         # k frame extractions, each decoded by one flat decode_frames call.
         # A successful unlocked extraction locks (sync verified) and leaves
         # the stream frame-aligned, so later extractions use pos 0.
         batches, oks = [], []
         for _ in range(self.k):
-            # Acquisition (the full-window correlator) reflects the post-pop
-            # ring, but runs ONLY while some channel is unlocked: in steady
-            # state every channel is frame-aligned at pos 0.  The test reads
-            # one flag back from the device.
-            if bool((~locked).any()):
-                acq_corr, acq_pos = self._acquire(ring)
-                # No sync in the window -> slide exactly ONE frame (pos 0),
-                # the reference flywheel's blind drop: a noise argmax would
-                # overshoot past an upcoming sync and swallow the head of
-                # the first real frame.
-                acq_pos = torch.where(acq_corr >= thresh, acq_pos, zero_pos)
-                pos = torch.where(locked, zero_pos, acq_pos)
-            else:
-                pos = zero_pos
+            # Acquisition reflects the post-pop ring; only unlocked channels
+            # correlate (in steady state every channel is frame-aligned at
+            # pos 0 and the launch reads the flags alone).
+            pos = self._acquire(ring, locked)
             ring, fill, chunk, ok = ring_extract(ring, fill, pos, _CODED)
             batch, ntails = self._dec.decode_frames(chunk, tails)
             tails = torch.where(ok[:, None], ntails, tails)

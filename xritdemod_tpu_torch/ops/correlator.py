@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from xritdemod_tpu_torch.utils.bits import bits_of_u64
 
 __all__ = ["make_templates", "correlate", "best_correlation", "correlate_at", "phase_fix",
-           "UW_BITS"]
+           "acquire_positions_plain", "UW_BITS"]
 
 UW_BITS = 64
 
@@ -76,6 +76,32 @@ def first_argmax(x: torch.Tensor) -> torch.Tensor:
     mx = x.max(dim=-1, keepdim=True).values
     iota = torch.arange(n, device=x.device)
     return torch.where(x == mx, iota, n).min(dim=-1).values
+
+
+@torch.no_grad()
+def acquire_positions_plain(ring: torch.Tensor, locked: torch.Tensor, templates: torch.Tensor,
+                            window: int, threshold: int) -> torch.Tensor:
+    """Plain PyTorch version of `acquire_cuda.acquire_positions` (the
+    kernel's golden model): each channel's extraction position.
+
+    A locked channel takes 0.  An unlocked one correlates the hard signs of
+    its ring's first `window` symbols with every word at every lag and keeps
+    the first maximum (`best_correlation`); below `threshold` matching bits
+    it takes 0 too (the reference flywheel's blind drop of one frame).
+
+    Args:
+      ring: `(C, L)` float32 or bfloat16 soft symbols, `L >= window`.
+      locked: `(C,)` bool frame lock.
+      templates: `(W, 64)` +-1 word templates.
+      window: symbols searched, `lags + 63`.
+      threshold: least matching bits of a sync.
+
+    Returns `(C,)` int32 positions.
+    """
+    counts = correlate(ring[:, :window].float(), templates)
+    corr, _, p = best_correlation(counts)
+    zero = torch.zeros_like(p)
+    return torch.where(locked | (corr < threshold), zero, p)
 
 
 def correlate_at(soft: torch.Tensor, templates: torch.Tensor, positions: torch.Tensor):

@@ -39,9 +39,16 @@ def pn_sequence(nbytes: int, device="cpu") -> torch.Tensor:
     return torch.from_numpy(_pn_np(nbytes).copy()).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _pn_on(nbytes: int, device: torch.device) -> torch.Tensor:
+    """The sequence on `device`, copied there once: a copy from the host at
+    every call would make the caller wait for it."""
+    return pn_sequence(nbytes, device)
+
+
 def derandomize(data: torch.Tensor) -> torch.Tensor:
     """XOR `(..., N)` uint8 frames with the PN sequence (restart per frame)."""
-    return data ^ pn_sequence(data.shape[-1], data.device)
+    return data ^ _pn_on(data.shape[-1], data.device)
 
 
 

@@ -3,14 +3,17 @@
 Counterpart of `xritdemod_tpu/ops/reed_solomon.py`.  All four interleaved
 blocks of a whole batch of frames decode together: syndromes, Berlekamp-
 Massey (a fixed 32 iterations with masked updates), Chien search and Forney
-evaluation.  GF(2^8) arithmetic is integer log/exp table lookups by tensor
-indexing — the JAX package's GF(2) bit-matrix matmuls and one-hot row
-compaction exist because gathers serialise on its device, and are not
-carried over.  The correction stages run on a batch's errored codewords
-only where the batch has some: the reference's sparse path (`sparse_max`),
-rows gathered and scattered by index, or every row when more err; one
-count read to the host chooses.  The results are identical to correcting
-every row.
+evaluation.  A CUDA tensor takes the kernel (`ops/rs_cuda.py`, `csrc/rs.cu`):
+every codeword of the batch in one launch, nothing read back to the host.
+A CPU tensor takes the plain version, `rs_decode_plain`: GF(2^8) arithmetic
+as integer log/exp table lookups by tensor indexing (the JAX package's GF(2)
+bit-matrix matmuls and one-hot row compaction exist because gathers
+serialise on its device, and are not carried over), its correction stages
+on a batch's errored codewords only where the batch has some: the
+reference's sparse path (`sparse_max`), rows gathered and scattered by
+index, or every row when more err; one count read to the host chooses.
+The results of both, and of every branch, are identical to correcting every
+row.
 
 Code parameters (CCSDS 131.0-B): field polynomial x^8+x^7+x^2+x+1 (0x187),
 generator roots alpha^(11*112)..alpha^(11*143) (fcr=112, prim=11).  Working
@@ -30,12 +33,14 @@ import numpy as np
 import torch
 
 from xritdemod_tpu_torch import constants as C
+from xritdemod_tpu_torch.ops import rs_cuda
 
 __all__ = [
     "branches",
     "deinterleave",
     "interleave",
     "rs_decode",
+    "rs_decode_plain",
     "rs_decode_frame",
     "rs_encode_np",
     "to_conventional",
@@ -196,10 +201,11 @@ def interleave(blocks: torch.Tensor) -> torch.Tensor:
 # Rows per syndrome sweep: bounds the (rows, 32, 255) int32 temporaries.
 _SYN_CHUNK = 2048
 
-# Calls of `rs_decode` by the branch they took: "clean" (no codeword erred),
-# "sparse" (at most Kmax erred: Kmax rows corrected), "full" (more than Kmax
-# erred: every row corrected) and "rows" (`sparse_max` 0 or >= B: the errored
-# rows, found by one variable-length read).
+# Calls of `rs_decode_plain` by the branch they took: "clean" (no codeword
+# erred), "sparse" (at most Kmax erred: Kmax rows corrected), "full" (more
+# than Kmax erred: every row corrected) and "rows" (`sparse_max` 0 or >= B:
+# the errored rows, found by one variable-length read).  The kernel takes no
+# branch.
 branches = {"clean": 0, "sparse": 0, "full": 0, "rows": 0}
 
 
@@ -209,6 +215,20 @@ def rs_decode(received: torch.Tensor, sparse_max: int | None = None):
     Returns `(corrected, nerrors)`: corrected `(B, 255)` dual-basis uint8
     bytes (parity included) and `(B,)` int32 corrected-symbol counts, -1 on
     decode failure (uncorrectable; the row is returned as received).
+
+    On a CUDA tensor the kernel (`rs_cuda.rs_decode_kernel`) corrects every
+    errored row in one launch and reads nothing back to the host, whatever
+    `sparse_max` says; on a CPU tensor `rs_decode_plain` takes the branch
+    `sparse_max` chooses.  Both give the same results.
+    """
+    if received.is_cuda:
+        return rs_cuda.rs_decode_kernel(received)
+    return rs_decode_plain(received, sparse_max)
+
+
+def rs_decode_plain(received: torch.Tensor, sparse_max: int | None = None):
+    """Plain PyTorch version of `rs_decode` (the kernel's golden model), on
+    any device.
 
     `sparse_max` Kmax (None: `_default_sparse_max(B)`, which reads
     XRIT_RS_SPARSE at the call): with 0 < Kmax < B one count of errored rows

@@ -8,7 +8,8 @@ decoder's windows as the decoder picks them added.  Every stage is timed
 under `tools/timing.py`'s rule (one warm-up, N calls queued, CUDA events,
 one synchronisation), on noise frames of N(0, 32) soft symbols:
 
-  - `decode_frames` whole, chained through its `(B, 64)` tails;
+  - `decode_frames` whole, chained through its `(B, 64)` tails, and on the
+    noiseless frames of a transmitted stream (every codeword clean);
   - the Viterbi kernel (K3): segmented at S = 2, 4, 8 and at the decoder's
     own S for this B (overlap 128; at most 8192 windows a launch, as the
     decoder keeps it), at S = 4 with overlap
@@ -39,6 +40,7 @@ from xritdemod_tpu_torch.tools.timing import card, require_device, timed
 def stages(B: int, device):
     """-> (name -> (fn, carry) of every stage at B frames, numpy seed 0; the
     name of the Viterbi stage `decode_frames` runs at B)."""
+    from xritdemod_tpu_torch import tx
     from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig
     from xritdemod_tpu_torch.ops import reed_solomon as rs_op
     from xritdemod_tpu_torch.ops.derandomizer import derandomize
@@ -56,6 +58,11 @@ def stages(B: int, device):
     tails = torch.zeros((B, 64), dtype=torch.float32, device=dev)
     ext = torch.cat([tails, frames], dim=1)
     out = {"full decode_frames": (lambda tl: dec.decode_frames(frames, tl)[1], tails)}
+    # A transmitted stream's frames, noiseless: every codeword clean.
+    sent = tx.encode_stream(tx.make_vcdus(B, vcid=1, rng=np.random.default_rng(1)), lrit=True)
+    sent = t(sent[: B * 16384].reshape(B, 16384).astype(np.float32))
+    out["full decode_frames (clean frames)"] = (
+        lambda tl: dec.decode_frames(sent, tl)[1], tails)
     segs = dec._segments(B)
     for S in sorted({2, 4, 8, segs} - {0, 1}):
         if B * S <= 8192:

@@ -14,7 +14,8 @@ own state:
   - the demod half, `Demodulator.block_batch` (K1, K2);
   - `ring_append` (K4a) of 30000 symbols a channel and `ring_extract` (K4b)
     of one coded frame, alone;
-  - the acquisition correlation over the ring's first frame of lags;
+  - the acquisition (K9) of every channel unlocked, over the ring's first
+    frame of lags;
   - one `decode_frames` of C noise frames (K3); a step runs it k times.
 
 Beside each: its kernel launches a call, by kernel, from the wrappers'
@@ -69,10 +70,11 @@ def components(rx, x, st):
         ring, f2, out, ok = ring_extract(ring, fill, zero, FRAME)
         return ring, torch.where(ok, f2, fill + 30000), out
 
+    unlocked = torch.zeros((C,), dtype=torch.bool, device=dev)
+
     def acquire(carry):
         ring = carry[0]
-        corr, _ = rx._acquire(ring)
-        return ring, corr
+        return ring, rx._acquire(ring, unlocked)
 
     return {
         "full rx step (unlocked: acq on)": (lambda s: rx.step(x, s)[3], st),

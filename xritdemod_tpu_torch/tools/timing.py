@@ -122,7 +122,7 @@ FRONTEND_FORMS = {"frontend_bk8_bf16": (8, "both", "bf16"), "frontend_bk8": (8, 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count since its last reset, by kernel."""
     from xritdemod_tpu_torch.ops import (
-        clock_cuda, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda,
+        acquire_cuda, clock_cuda, frontend_cuda, ring_cuda, rs_cuda, stream_cuda, viterbi_cuda,
     )
     from xritdemod_tpu_torch.tools import roll_probe
 
@@ -137,6 +137,7 @@ def launch_counts() -> dict:
         costas_slab=stream_cuda.launches_costas_slab,
         ring_append_bf16=ring_cuda.launches_append_bf16,
         ring_extract_bf16=ring_cuda.launches_extract_bf16,
+        rs=rs_cuda.launches, acquire=acquire_cuda.launches,
     )
     for name, key in FRONTEND_FORMS.items():
         out[name] = forms.pop(key, 0)
@@ -147,7 +148,7 @@ def launch_counts() -> dict:
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from xritdemod_tpu_torch.ops import (
-        clock_cuda, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda,
+        acquire_cuda, clock_cuda, frontend_cuda, ring_cuda, rs_cuda, stream_cuda, viterbi_cuda,
     )
     from xritdemod_tpu_torch.tools import roll_probe
 
@@ -161,6 +162,7 @@ def reset_launches() -> None:
     stream_cuda.launches_agc = stream_cuda.launches_costas = 0
     stream_cuda.launches_costas_slab = 0
     roll_probe.launches = 0
+    rs_cuda.launches = acquire_cuda.launches = 0
 
 
 class Launches:
