@@ -640,30 +640,37 @@ RS_ROWS = 4 * CHANNELS         # the fused step's codewords: 4 a frame, a frame 
 RS_RAGGED = (1, 3, 33)
 RS_EDGE_ROWS = 1024            # the edge words in one batch, at the automatic Kmax 128
 RS_SPARSE = (0, 4, None)       # the plain route's Kmax: its rows, its sparse and full branches
-RS_TABLE_BYTES = rs_cuda.TABLE_BYTES
 
 
-def rs_bound(rows: int, errored: int):
-    """K8's least time for `rows` codewords of which `errored` are corrected:
-    bytes, each codeword in and out, the nerr word and the tables once; table
-    multiply-adds (two operations each, against the float32 rate) of the
-    syndromes (32 x 255 a codeword) and, for an errored codeword,
-    Berlekamp-Massey (32 x 33 x 2), Omega (528), Chien with Lambda' and
-    Forney (255 x 81)."""
-    ops = 2.0 * (rows * 32 * 255 + errored * (32 * 33 * 2 + 528 + 255 * 81))
-    return bound(rows * (2 * 255 + 4) + RS_TABLE_BYTES, ops)
+def rs_bound(nerr: torch.Tensor):
+    """K8's least time for the rows whose results are `nerr`: the design's
+    work (`rs_cuda.bound_work`: bytes, and the errored rows' table
+    multiply-adds against the float32 rate; the syndromes' b1 product on the
+    tensor cores left out), then the table algorithm's (`rs_cuda.table_work`,
+    the yardstick of the one-warp kernel before it): `(ms, by, table_ms,
+    table_by)`."""
+    rows, errored = nerr.numel(), int((nerr != 0).sum())
+    return bound(*rs_cuda.bound_work(nerr)) + bound(*rs_cuda.table_work(rows, errored))
 
 
 def check_rs() -> dict:
-    """K8 against the plain route on the card, bit for bit: the fused step's
-    4 x 2048 codewords on noise (random words: every one errored and
-    uncorrectable) and on clean frames (codewords), each at every Kmax of
-    RS_SPARSE (the plain route's errored rows, its sparse and its full
-    branch); the edge words of `tools/edge_cases.py` (16 and 17 errors,
-    parity only, the end bytes, all-zero and all-0xFF words, a
-    miscorrection, random and length-18 words) in a batch of 1024; the
-    ragged batches of 1, 3 and 33 rows.  Times: the kernel on noise and on
-    clean frames, the plain route's errored rows (Kmax 0) on each."""
+    """K8 against the plain route on the card, bit for bit, through both
+    entries.  Codewords: the fused step's 4 x 2048 on noise (random words:
+    every one errored and uncorrectable) and on clean frames (codewords),
+    each at every Kmax of RS_SPARSE (the plain route's errored rows, its
+    sparse and its full branch); the edge words of `tools/edge_cases.py`
+    (16 and 17 errors, parity only, the end bytes, all-zero and all-0xFF
+    words, a miscorrection, random and length-18 words) in a batch of 1024;
+    the ragged batches of 1, 3 and 33 rows.  Frames (the frame entry, the
+    interleave read in place) against `rs_decode_frame_plain` at every
+    Kmax: the fused step's 2048 frames on noise, clean and mixed (slots of
+    clean, errored and random words); the edge words in every slot
+    (`edge_cases.rs_frames`); 1, 3 and 33 frames.  Times of the kernel on
+    noise and on clean words through each entry: the device time
+    (`timing.graph_ms`, its host time left out) and the eager time (20 calls
+    between two events); the plain route's errored rows (Kmax 0) on each;
+    the kernels one frame call launches (torch.profiler: K8 alone, no copy
+    around it)."""
     rng = np.random.default_rng(SEED + 80)
     noise = torch.from_numpy(rng.integers(0, 256, (RS_ROWS, 255), dtype=np.int64)
                              .astype(np.uint8)).to(DEV)
@@ -672,7 +679,12 @@ def check_rs() -> dict:
     cases = edge_cases.rs_edge_cases(SEED + 81)
     edges = torch.from_numpy(edge_cases.rs_batch(cases, RS_EDGE_ROWS, SEED + 82)).to(DEV)
     mixed = torch.cat([edges[:40], noise[:8], clean[:8]])
-    out = dict(cases={})
+    as_frames = lambda cw: reed_solomon.interleave(cw.reshape(-1, 4, 255)).contiguous()
+    slots = torch.stack([clean, noise, edges.repeat(RS_ROWS // RS_EDGE_ROWS, 1)], 1)
+    pick = torch.from_numpy(rng.integers(0, 3, RS_ROWS)).to(DEV)
+    mixed_frames = as_frames(slots[torch.arange(RS_ROWS, device=DEV), pick])
+    edge_frames = torch.from_numpy(edge_cases.rs_frames(cases, SEED + 83)).to(DEV)
+    out = dict(cases={}, frame_cases={})
 
     def held(name, x, sparse=RS_SPARSE):
         k = rs_cuda.rs_decode_kernel(x)
@@ -684,6 +696,16 @@ def check_rs() -> dict:
                                   failed=int((k[1] < 0).sum()))
         return k
 
+    def held_frames(name, f, sparse=RS_SPARSE):
+        k = reed_solomon.rs_decode_frame(f)
+        for sm in sparse:
+            p = reed_solomon.rs_decode_frame_plain(f, sm)
+            if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
+                fail(f"rs: the frame entry differs from the plain route (Kmax {sm}) on {name}")
+        out["frame_cases"][name] = dict(frames=int(f.shape[0]),
+                                        corrected=int((k[1] > 0).sum()),
+                                        failed=int((k[1] < 0).sum()))
+
     kn = held("noise", noise)
     held("clean", clean)
     held("edges", edges)
@@ -691,22 +713,48 @@ def check_rs() -> dict:
         held(f"ragged_{B}", mixed[:B].contiguous(), (0, None))
     if out["cases"]["clean"]["corrected"] or out["cases"]["clean"]["failed"]:
         fail(f"rs: clean codewords corrected or failed: {out['cases']['clean']}")
+    noise_f, clean_f = as_frames(noise), as_frames(clean)
+    held_frames("noise", noise_f)
+    held_frames("clean", clean_f)
+    held_frames("mixed", mixed_frames)
+    held_frames("edges_in_every_slot", edge_frames)
+    for F in RS_RAGGED:
+        held_frames(f"ragged_{F}", edge_frames[F:2 * F].contiguous())
+    before = rs_cuda.launches
+    _, ks = timing.device_kernels(lambda: reed_solomon.rs_decode_frame(noise_f))
+    frame_kernels = sum(c for _, _, c in ks)
+    if rs_cuda.launches - before != 1 or frame_kernels > 1:
+        fail(f"rs: a frame call launched {frame_kernels} kernels: {[k for k, _, _ in ks]}")
     ms = time_ms(lambda: rs_cuda.rs_decode_kernel(noise), 20)
     clean_ms = time_ms(lambda: rs_cuda.rs_decode_kernel(clean), 20)
+    dev_ms = timing.graph_ms(lambda: rs_cuda.rs_decode_kernel(noise))
+    clean_dev_ms = timing.graph_ms(lambda: rs_cuda.rs_decode_kernel(clean))
+    frame_times = dict(
+        noise_device_ms=timing.graph_ms(lambda: reed_solomon.rs_decode_frame(noise_f)),
+        noise_eager_ms=time_ms(lambda: reed_solomon.rs_decode_frame(noise_f), 20),
+        clean_device_ms=timing.graph_ms(lambda: reed_solomon.rs_decode_frame(clean_f)),
+        clean_eager_ms=time_ms(lambda: reed_solomon.rs_decode_frame(clean_f), 20),
+        kernels_per_call=frame_kernels)
     _, plain_ms = once_ms(lambda: reed_solomon.rs_decode_plain(noise, 0))
     _, plain_clean_ms = once_ms(lambda: reed_solomon.rs_decode_plain(clean, 0))
     errored = int((kn[1] != 0).sum())
-    bms, by = rs_bound(RS_ROWS, errored)
-    cbms, cby = rs_bound(RS_ROWS, 0)
+    bms, by, tbms, tby = rs_bound(kn[1])
+    cbms, cby, ctbms, ctby = rs_bound(torch.zeros(RS_ROWS, dtype=torch.int32))
     return dict(
         name="rs", route="cuda", source="xritdemod_tpu_torch/csrc/rs.cu",
         replaces="xritdemod_tpu/ops/reed_solomon.py:313",
         replaces_kind="rs_decode with _rs_correct (:313-518): an XLA program (lax.scan, "
                       "lax.cond), no pl.pallas_call",
-        max_abs_err=0.0, tolerance="exact, every Kmax of the plain route", ms=ms,
+        max_abs_err=0.0, tolerance="exact, every Kmax of the plain route, both entries",
+        ms=ms, ms_is="eager: 20 calls between two events, the wrapper's host time in it",
+        device_ms=dev_ms, device_ms_is="timing.graph_ms: 20 calls as a CUDA graph",
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None, rows=RS_ROWS,
-        errored_rows=errored, clean_ms=clean_ms, clean_plain_ms=plain_clean_ms,
-        clean_bound_ms=cbms, clean_bound_by=cby, **out)
+        errored_rows=errored, clean_ms=clean_ms, clean_device_ms=clean_dev_ms,
+        clean_plain_ms=plain_clean_ms, clean_bound_ms=cbms, clean_bound_by=cby,
+        table_bound_ms=tbms, table_bound_by=tby, clean_table_bound_ms=ctbms,
+        clean_table_bound_by=ctby,
+        bound_is="the design's work (rs_cuda.bound_work); table_bound: the table algorithm's "
+                 "(rs_cuda.table_work)", frames=frame_times, **out)
 
 
 ACQ_SEED = SEED + 90
@@ -719,13 +767,17 @@ def check_acquire(rx: FusedReceiver) -> dict:
     words, ties between words and between lags, -0.0 symbols, a word below
     the threshold; the rest a sync at a random lag or noise), float32 and
     bf16, with all, half and no channels unlocked; the edge channels'
-    positions as the generator places them; the ragged C = 1 and 17.
-    Times: the kernel and the plain version in each case."""
+    positions as the generator places them; the ragged C = 1 and 17; then
+    HRIT's words (two words that tie, the kernel's general instance) on
+    their own edge ring, f32 and bf16, all, half and no channels unlocked.
+    The kernel takes the packed sign masks, the plain version the templates
+    they stand for.  Times (the receiver's LRIT words): the kernel's device time (`timing.graph_ms`) and
+    eager time, and the plain version's, in each case."""
     C, L, window = CHANNELS, rx.ring_len, rx._acq
     words = rx.decoder_config.uws
     thresh = rx.decoder_config.min_correlation_bits
     lags = window - correlator.UW_BITS + 1
-    tpl = rx._templates
+    tpl = acquire_cuda.unpack_masks(rx._acq_words, DEV)
     soft = torch.from_numpy(edge_cases.acquire_ring(C, words, lags, ACQ_SEED)).to(DEV)
     ring = torch.zeros((C, L), device=DEV)
     ring[:, : soft.shape[1]] = soft
@@ -740,7 +792,8 @@ def check_acquire(rx: FusedReceiver) -> dict:
         esize = r.element_size()
         for name, locked in lockings.items():
             args = (r, locked, tpl, window, thresh)
-            k = acquire_cuda.acquire_positions(*args)
+            kargs = (r, locked, rx._acq_words, window, thresh)
+            k = acquire_cuda.acquire_positions(*kargs)
             correlator.acquire_positions_plain(*args)        # cuDNN's choice made
             p, plain_ms = once_ms(lambda: correlator.acquire_positions_plain(*args))
             if not torch.equal(k, p):
@@ -748,16 +801,40 @@ def check_acquire(rx: FusedReceiver) -> dict:
             if name == "all_unlocked" and k[1:edge_cases.EDGE_CHANNELS].tolist() != want_edges:
                 fail(f"acquire ({dt}): edge channels at {k[:edge_cases.EDGE_CHANNELS].tolist()}")
             unlocked = int((~locked).sum())
-            bms, by = bound(unlocked * window * esize + 5 * C, 4.0 * unlocked * lags * len(words))
+            bms, by = bound(*acquire_cuda.bound_work(C, unlocked, window, len(words), esize))
+            kernel = lambda: acquire_cuda.acquire_positions(*kargs)
             cases[f"{name}_{str(dt).replace('torch.', '')}"] = dict(
-                unlocked=unlocked, ms=time_ms(lambda: acquire_cuda.acquire_positions(*args), 20),
+                unlocked=unlocked, ms=time_ms(kernel, 20), device_ms=timing.graph_ms(kernel),
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, synced=int((k != 0).sum()))
         for Cr in (1, 17):
             sub = r[:Cr].contiguous()
             lk = torch.zeros(Cr, dtype=torch.bool, device=DEV)
-            if not torch.equal(acquire_cuda.acquire_positions(sub, lk, tpl, window, thresh),
+            if not torch.equal(acquire_cuda.acquire_positions(sub, lk, rx._acq_words, window,
+                                                              thresh),
                                correlator.acquire_positions_plain(sub, lk, tpl, window, thresh)):
                 fail(f"acquire (C = {Cr}, {dt}): the kernel differs from its plain version")
+    # HRIT's words, two that can tie (the kernel's general instance; the
+    # receiver's LRIT pair takes the complement instance): held, not timed.
+    hmasks = acquire_cuda.pack_masks(correlator.make_templates([K.HRIT_UW0, K.HRIT_UW2]))
+    htpl = acquire_cuda.unpack_masks(hmasks, DEV)
+    hring = torch.zeros((C, L), device=DEV)
+    hsoft = edge_cases.acquire_ring(C, [K.HRIT_UW0, K.HRIT_UW2], lags, ACQ_SEED + 1)
+    hring[:, : hsoft.shape[1]] = torch.from_numpy(hsoft).to(DEV)
+    del hsoft
+    for dt in (torch.float32, torch.bfloat16):
+        r = hring.to(dt)
+        for name, locked in lockings.items():
+            k = acquire_cuda.acquire_positions(r, locked, hmasks, window, thresh)
+            if not torch.equal(k, correlator.acquire_positions_plain(r, locked, htpl, window,
+                                                                     thresh)):
+                fail(f"acquire (HRIT words, {name}, {dt}): the kernel differs from its plain "
+                     f"version")
+            if name == "all_unlocked" and k[1:edge_cases.EDGE_CHANNELS].tolist() != want_edges:
+                fail(f"acquire (HRIT words, {dt}): edge channels at "
+                     f"{k[:edge_cases.EDGE_CHANNELS].tolist()}")
+            cases[f"hrit_{name}_{str(dt).replace('torch.', '')}"] = dict(
+                unlocked=int((~locked).sum()), synced=int((k != 0).sum()))
+    del hring
     # The nearest PyTorch call: one convolution of the ring's signs (made
     # beforehand) with the templates gives the counts, not the first best
     # lag, the threshold or the lock select.
@@ -769,9 +846,12 @@ def check_acquire(rx: FusedReceiver) -> dict:
         replaces="xritdemod_tpu/models/receiver.py:164",
         replaces_kind="do_acq under lax.cond, the threshold and the lock select (:164-191): "
                       "an XLA program, no pl.pallas_call",
-        max_abs_err=0.0, tolerance="exact", ms=main["ms"], plain_ms=main["plain_ms"],
-        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
-        steady_ms=cases["none_unlocked_float32"]["ms"], channels=C, cases=cases,
+        max_abs_err=0.0, tolerance="exact", ms=main["ms"],
+        ms_is="eager: 20 calls between two events, the wrapper's host time in it",
+        device_ms=main["device_ms"], device_ms_is="timing.graph_ms: 20 calls as a CUDA graph",
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, steady_ms=cases["none_unlocked_float32"]["ms"],
+        steady_device_ms=cases["none_unlocked_float32"]["device_ms"], channels=C, cases=cases,
         nearest_library_call=dict(call="F.conv1d of the window's signs with the templates "
                                   "(the counts only)", ms=near))
 
@@ -1871,12 +1951,6 @@ def check_slab_edges(demod: Demodulator) -> dict:
 HAZARD_EXEMPT = {
     "viterbi_kernel": "one warp of 32 threads a block (__launch_bounds__(32)): no hand-off "
                       "between warps or blocks; `check_paths_under_load` runs it on both paths",
-    "rs_decode_kernel": "one warp of 32 threads a block (__launch_bounds__(32)), a codeword a "
-                        "warp: no hand-off between warps or blocks; `check_paths_under_load` "
-                        "runs it on both paths",
-    "acquire_kernel": "one warp of 32 threads a block (__launch_bounds__(32)), a channel a "
-                      "warp: no hand-off between warps or blocks; `check_paths_under_load` "
-                      "runs it on the fused path",
     "trig_check_kernel": "a check of the Costas step's sine and cosine, not a stage",
     "large_trig_check_kernel": "a check of the slab walks' large-argument sine, not a stage",
     "sinc_tap_check_kernel": "a check of the sinc clock's branch-free taps, not a stage",
@@ -3178,14 +3252,15 @@ def rs_sparse_phase(vcdus, smi: str) -> dict:
     (8192 codewords, the automatic Kmax 512): the same frames with an error
     burst (600 coded symbols of noise) in RS_FEW frames (at most Kmax
     codewords in error: the plain route's sparse branch) and in RS_MANY
-    (more than Kmax: its full branch), each decoded through the kernel (K8)
-    and through the plain route (`rs_decode_plain`) with the automatic Kmax
-    and with XRIT_RS_SPARSE=0 (its errored rows, found by a variable-length
-    read).  Every `FrameBatch` field must be equal between the three; each
-    case's errored codewords must fall on its side of Kmax; the plain route
-    must take its branch.  Prints the times of `decode_frames` and, counted
-    with CUDA's synchronisation debug mode, the host reads of each
-    `rs_decode` call: the kernel's route must make none."""
+    (more than Kmax: its full branch), each decoded through the kernel (K8's
+    frame entry) and through the plain frame route (`rs_decode_frame_plain`)
+    with the automatic Kmax and with XRIT_RS_SPARSE=0 (its errored rows,
+    found by a variable-length read).  Every `FrameBatch` field must be
+    equal between the three; each case's errored codewords must fall on its
+    side of Kmax; the plain route must take its branch.  Prints the times of
+    `decode_frames` and, counted with CUDA's synchronisation debug mode, the
+    host reads of each `rs_decode_frame` call: the kernel's route must make
+    none."""
     B = CHANNELS
     per = []
     for s in range(STREAMS):
@@ -3198,16 +3273,15 @@ def rs_sparse_phase(vcdus, smi: str) -> dict:
     tails = torch.zeros((B, 64), device=DEV)
     dec = CaduDecoder(DecoderConfig(mode="lrit"))
     kmax = reed_solomon._default_sparse_max(4 * B)
-    rs_call, rs_route = reed_solomon.rs_decode_frame, reed_solomon.rs_decode
-    plain_route = lambda x, sparse_max=None: reed_solomon.rs_decode_plain(x, sparse_max)
+    rs_call = reed_solomon.rs_decode_frame
     reads: list = []
 
-    def counted(frames):
+    def counted(frames, call):
         with warnings.catch_warnings(record=True) as w:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                out = rs_call(frames)
+                out = call(frames)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         reads.append(sum("called a synchronizing CUDA operation" in str(m.message) for m in w))
@@ -3222,18 +3296,18 @@ def rs_sparse_phase(vcdus, smi: str) -> dict:
         res = {}
         for mode in ("kernel", "auto", "off"):
             os.environ["XRIT_RS_SPARSE"] = "0" if mode == "off" else "1"
-            route = rs_route if mode == "kernel" else plain_route
+            call = rs_call if mode == "kernel" else reed_solomon.rs_decode_frame_plain
             before = dict(reed_solomon.branches)
             launched = rs_cuda.launches
-            reed_solomon.rs_decode_frame, reed_solomon.rs_decode, reads[:] = counted, route, []
+            reed_solomon.rs_decode_frame, reads[:] = (lambda f: counted(f, call)), []
             try:
                 batch, _ = dec.decode_frames(frames, tails)
                 took = {k: v - before[k] for k, v in reed_solomon.branches.items()
                         if v != before[k]}
-                reed_solomon.rs_decode_frame = rs_call
+                reed_solomon.rs_decode_frame = call
                 ms = time_ms(lambda: dec.decode_frames(frames, tails), 5)
             finally:
-                reed_solomon.rs_decode_frame, reed_solomon.rs_decode = rs_call, rs_route
+                reed_solomon.rs_decode_frame = rs_call
             res[mode] = dict(batch=batch, ms=ms, host_reads_per_rs_call=reads[:1],
                              branch=took, kernel_launches=rs_cuda.launches - launched)
         os.environ.pop("XRIT_RS_SPARSE", None)
@@ -3254,7 +3328,7 @@ def rs_sparse_phase(vcdus, smi: str) -> dict:
                  f"{res['auto']['branch']} and {res['off']['branch']}")
         if res["kernel"]["host_reads_per_rs_call"] != [0] or res["kernel"]["kernel_launches"] < 1:
             fail(f"rs sparse ({name}): the kernel's route made "
-                 f"{res['kernel']['host_reads_per_rs_call']} host reads in one rs_decode call "
+                 f"{res['kernel']['host_reads_per_rs_call']} host reads in one rs_decode_frame call "
                  f"(wanted none) and {res['kernel']['kernel_launches']} launches")
         out[name] = dict(
             burst_frames=nburst, errored_codewords=errored,
@@ -3895,6 +3969,7 @@ def main() -> None:
     k2b = kernel_frames(built["log"], "_Z15clock_bu_kernel", "b")
     k2s = kernel_frames(built["log"], "_Z17clock_sinc_kernel")
     slabs = slab_frames(built["log"])
+    k8 = kernel_frames(built["log"], "_Z16rs_decode_kernel")
     # The host library of the apps' sample ring, built here, in this
     # process: the apps line reports which ring they got, and why.
     t_native = time.perf_counter()
@@ -3904,7 +3979,7 @@ def main() -> None:
             ln for ln in built["log"].splitlines() if "registers" in ln or "spill" in ln],
         viterbi_instances=k3, clock_instances=k2, clock_bu_instances=k2b,
         clock_sinc_instances=k2s,
-        slab_instances=slabs,
+        slab_instances=slabs, rs_instances=k8,
         native_library=dict(loaded=native_ok, path=str(native.library_path()),
                             error=native.last_error(),
                             seconds=time.perf_counter() - t_native))
@@ -3918,6 +3993,9 @@ def main() -> None:
     # K1's 16 slab instances, K6's three spread instances and its lane-a-channel one.
     if len(slabs) != 20 or any(any(v) for v in slabs.values()):
         fail(f"slab kernels: every instance must build without stack frame or spill: {slabs}")
+    # K8's two entries (G = 1 codewords, G = 4 frames) within their 64 registers.
+    if sorted(k8) != ["1", "4"] or any(any(v) for v in k8.values()):
+        fail(f"rs: both instances must build without stack frame or spill: {k8}")
 
     if UNDER_LOAD_ONLY:
         cfg = DemodConfig.lrit(sample_rate=1_250_000)
@@ -3953,6 +4031,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     rows.append(check_rs())
     rows.append(check_acquire(rx))
+    # K8's and K9's cases, each with its device time beside its eager time.
+    say("decisions", card=smi, **{r["name"]: {k: v for k, v in r.items() if k != "name"}
+                                  for r in rows[-2:]})
     torch.cuda.empty_cache()
     rows.append(check_roll())
     say("kernels", card=smi, ragged_shapes_max_abs_err=check_ragged(rx), kernels=[
@@ -4067,7 +4148,8 @@ def main() -> None:
     print(smi, flush=True)
     extra = ("launches_split_path", "launches_apps", "launches_parallel", "launches_tools",
              "lanes", "split_shapes", "form", "path", "exact_ms", "split_shape", "steady",
-             "replaces_kind", "clean_ms", "clean_bound_ms", "errored_rows", "steady_ms")
+             "replaces_kind", "clean_ms", "clean_bound_ms", "errored_rows", "steady_ms",
+             "ms_is", "device_ms", "device_ms_is", "clean_device_ms", "steady_device_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows + onchip_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -56,8 +56,8 @@ def test_acquisition_matches_jax(dtype, mode, locked_every):
         locked[1::locked_every] = True
     tdt = getattr(torch, dtype)
     t_ring = torch.from_numpy(ring).to(tdt)
-    templates = tcorr.make_templates(words)
-    got = acquire_cuda.acquire_positions(t_ring, torch.from_numpy(locked), templates,
+    masks = acquire_cuda.pack_masks(tcorr.make_templates(words))
+    got = acquire_cuda.acquire_positions(t_ring, torch.from_numpy(locked), masks,
                                          WINDOW, THRESH)
     want = _jax_positions(ring, locked, words, getattr(jnp, dtype))
     assert got.dtype == torch.int32
@@ -70,14 +70,14 @@ def test_acquisition_matches_jax(dtype, mode, locked_every):
 
 def test_acquisition_checks_its_inputs():
     ring = torch.zeros((2, WINDOW))
-    templates = tcorr.make_templates(WORDS["lrit"])
+    masks = acquire_cuda.pack_masks(tcorr.make_templates(WORDS["lrit"]))
     with pytest.raises(ValueError):
-        acquire_cuda.acquire_positions(ring, torch.zeros(2, dtype=torch.int32), templates,
+        acquire_cuda.acquire_positions(ring, torch.zeros(2, dtype=torch.int32), masks,
                                        WINDOW, THRESH)
     with pytest.raises(ValueError):
-        acquire_cuda.acquire_positions(ring, torch.zeros(2, dtype=torch.bool), templates,
+        acquire_cuda.acquire_positions(ring, torch.zeros(2, dtype=torch.bool), masks,
                                        WINDOW + 1, THRESH)
-    pos = acquire_cuda.acquire_positions(ring, torch.zeros(2, dtype=torch.bool), templates,
+    pos = acquire_cuda.acquire_positions(ring, torch.zeros(2, dtype=torch.bool), masks,
                                          WINDOW, THRESH)
     assert pos.tolist() == [0, 0]
 

@@ -94,6 +94,17 @@ def test_the_parser_finds_every_kernel():
     assert found["viterbi_kernel"] == "32" and found["roll_kernel"] is None
 
 
+@pytest.mark.parametrize("kernel", ["rs_decode_kernel", "acquire_kernel"])
+def test_the_decision_kernels_are_held_under_load(kernel):
+    """K8 and K9 hand work between their warps (a shared table, a queue of
+    errored rows, a block-level maximum): each has a case family, no
+    exemption, and more than one warp a block."""
+    families, exempt = _tables()
+    assert kernel in families.values() and kernel not in exempt
+    bounds = kernels_of(_sources())[kernel]
+    assert bounds is not None and bounds.split(",")[0].strip() != "32"
+
+
 MULTI_WARP = "template <int N>\n__global__ void __launch_bounds__(4 * 32, 1)\nnew_kernel(int* x) {}\n"
 ONE_WARP = "__global__ void __launch_bounds__(32) new_kernel(int* x) {}\n"
 

@@ -36,7 +36,7 @@ from xritdemod_tpu_torch import constants as C
 from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig, stack_batches
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, DemodState
 from xritdemod_tpu_torch.ops import correlator as corr_op
-from xritdemod_tpu_torch.ops.acquire_cuda import acquire_positions
+from xritdemod_tpu_torch.ops.acquire_cuda import acquire_positions, pack_masks
 from xritdemod_tpu_torch.ops.ring_cuda import ring_append, ring_extract
 from xritdemod_tpu_torch.utils.cplx import CF32, dequantize_iq_s8, from_complex
 
@@ -98,7 +98,8 @@ class FusedReceiver:
         self.block_len = block_len
         self._demod = Demodulator(demod_config, block_len, device=self.device)
         self._dec = CaduDecoder(decoder_config, device=self.device)
-        self._templates = corr_op.make_templates(decoder_config.uws, self.device)
+        # The words' sign masks, the acquisition kernel's arguments, packed once.
+        self._acq_words = pack_masks(corr_op.make_templates(decoder_config.uws))
 
         S = self._demod.num_slots
         expected = block_len / demod_config.decimation / demod_config.sps
@@ -128,7 +129,7 @@ class FusedReceiver:
         0 with no sync there (the reference flywheel's blind drop of ONE
         frame: a noise argmax would overshoot past an upcoming sync and
         swallow the head of the first real frame)."""
-        return acquire_positions(ring, locked, self._templates, self._acq,
+        return acquire_positions(ring, locked, self._acq_words, self._acq,
                                  self.decoder_config.min_correlation_bits)
 
     def _after_demod(self, demod_out, st: RxState):

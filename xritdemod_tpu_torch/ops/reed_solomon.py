@@ -4,7 +4,8 @@ Counterpart of `xritdemod_tpu/ops/reed_solomon.py`.  All four interleaved
 blocks of a whole batch of frames decode together: syndromes, Berlekamp-
 Massey (a fixed 32 iterations with masked updates), Chien search and Forney
 evaluation.  A CUDA tensor takes the kernel (`ops/rs_cuda.py`, `csrc/rs.cu`):
-every codeword of the batch in one launch, nothing read back to the host.
+every codeword of the batch in one launch, nothing read back to the host,
+frames through its frame entry, which reads the interleave in place.
 A CPU tensor takes the plain version, `rs_decode_plain`: GF(2^8) arithmetic
 as integer log/exp table lookups by tensor indexing (the JAX package's GF(2)
 bit-matrix matmuls and one-hot row compaction exist because gathers
@@ -42,6 +43,7 @@ __all__ = [
     "rs_decode",
     "rs_decode_plain",
     "rs_decode_frame",
+    "rs_decode_frame_plain",
     "rs_encode_np",
     "to_conventional",
     "to_dual",
@@ -361,11 +363,28 @@ def _rs_correct(S, r, tb):
 def rs_decode_frame(frames: torch.Tensor):
     """Decode `(B, 1020)` derandomized frame bytes (4-way interleave).
 
-    Returns `(corrected (B, 1020) uint8, nerrors (B, 4) int32)`.
+    Returns `(corrected (B, 1020) uint8, nerrors (B, 4) int32)`.  On a CUDA
+    tensor one launch of the kernel's frame entry
+    (`rs_cuda.rs_decode_frames_kernel`), which reads the interleave in place;
+    on a CPU tensor the codewords are taken apart and `rs_decode` decodes
+    them.
     """
+    if frames.is_cuda:
+        return rs_cuda.rs_decode_frames_kernel(frames)
+    return _frame_route(frames, rs_decode)
+
+
+def rs_decode_frame_plain(frames: torch.Tensor, sparse_max: int | None = None):
+    """Plain PyTorch version of `rs_decode_frame` (the frame entry's golden
+    model), on any device: the codewords taken apart, `rs_decode_plain` at
+    `sparse_max`, the interleave put back."""
+    return _frame_route(frames, lambda blocks: rs_decode_plain(blocks, sparse_max))
+
+
+def _frame_route(frames: torch.Tensor, decode):
     B = frames.shape[0]
     blocks = deinterleave(frames).reshape(B * C.RS_BLOCKS, _N)
-    corr, nerr = rs_decode(blocks)
+    corr, nerr = decode(blocks)
     corr = interleave(corr.reshape(B, C.RS_BLOCKS, _N))
     return corr, nerr.reshape(B, C.RS_BLOCKS)
 

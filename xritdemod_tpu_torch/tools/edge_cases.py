@@ -14,6 +14,10 @@ built here).  numpy only, from a seed.
     (L = 16, no valid locator); words whose Berlekamp-Massey length is 18.
   - `rs_batch(cases, rows, seed)`: every case's words in one `(rows, 255)`
     batch, the rest clean codewords.
+  - `rs_frames(cases, seed)`: `(4 n, 1020)` frames (the 4-way interleave)
+    with every case's n words in each of the four slots, the other three
+    slots of a frame a clean codeword, one with 1 to 16 symbol errors and a
+    random word.
   - `acquire_ring(C, lags, words, seed)`: a `(C, lags + 63 + 64)` float32
     ring whose first channels hold the acquisition's edges (a sync at lag 0
     and at the last lag, each word, a tie between words and one between
@@ -31,7 +35,8 @@ from xritdemod_tpu_torch.ops.correlator import UW_BITS
 from xritdemod_tpu_torch.ops.reed_solomon import _gf_tables, rs_encode_np
 from xritdemod_tpu_torch.utils.bits import bits_of_u64
 
-__all__ = ["rs_edge_cases", "rs_batch", "acquire_ring", "EDGE_CHANNELS", "BELOW_FLIPS"]
+__all__ = ["rs_edge_cases", "rs_batch", "rs_frames", "acquire_ring", "EDGE_CHANNELS",
+           "BELOW_FLIPS"]
 
 _N, _K = 255, 223
 
@@ -115,6 +120,29 @@ def rs_batch(cases: dict, rows: int, seed: int = 1) -> np.ndarray:
         raise ValueError(f"{words.shape[0]} edge words do not fit in {rows} rows")
     pad = _codewords(np.random.default_rng(seed), rows - words.shape[0])
     return np.concatenate([words, pad])
+
+
+def rs_frames(cases: dict, seed: int = 2) -> np.ndarray:
+    """`(4 n, 1020)` uint8 frames: frame f's codeword i is bytes i, i + 4, ...
+    The n edge words sit in slot 0 of the first n frames, slot 1 of the
+    next n, and so on; the other slots of each frame hold, in turns, a clean
+    codeword, one with 1 to 16 symbol errors and a random word."""
+    rng = np.random.default_rng(seed)
+    words = np.concatenate([recv for recv, _ in cases.values()])
+    n = words.shape[0]
+    fill = [_codewords(rng, 4 * n),
+            _hit(rng, _codewords(rng, 4 * n),
+                 [rng.choice(_N, size=int(rng.integers(1, 17)), replace=False)
+                  for _ in range(4 * n)]),
+            rng.integers(0, 256, (4 * n, _N), dtype=np.int64).astype(np.uint8)]
+    cw = np.zeros((4 * n, 4, _N), np.uint8)
+    for f in range(4 * n):
+        slot = f // n
+        others = [s for s in range(4) if s != slot]
+        cw[f, slot] = words[f % n]
+        for k, s in enumerate(others):
+            cw[f, s] = fill[(k + f) % 3][f]
+    return np.ascontiguousarray(cw.transpose(0, 2, 1).reshape(4 * n, 4 * _N))
 
 
 EDGE_CHANNELS = 10

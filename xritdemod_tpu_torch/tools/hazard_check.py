@@ -52,7 +52,16 @@ part-filled:
                 the edges of their realignment and of the shift (fill 0, a
                 full ring, an overflow, pos near L - E, channels short of a
                 frame beside channels that shift);
-  k7_roll       the roll probe's kernel.
+  k7_roll       the roll probe's kernel;
+  k8_rs         the RS decoder through both entries on tiles of 16
+                codewords with all, one and no rows errored (and the edge
+                words), more tiles than the persistent grid has blocks, a
+                part-filled last tile (4805 codewords; 1201 frames);
+  k9_acquire    the acquisition, float32 and bf16, on 27 channels: blocks
+                of eight with all, one and no channel unlocked and a
+                part-filled last block, on rows that start on 16-byte
+                boundaries and on rows that do not; LRIT's words (the
+                complement pair's instance) and HRIT's (words that tie).
 
 Imports only the port and numpy; runs on the card.
 """
@@ -73,11 +82,13 @@ import torch
 
 from xritdemod_tpu_torch import constants as K
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator
-from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, ring_cuda, stream_cuda
+from xritdemod_tpu_torch.ops import (
+    acquire_cuda, clock_cuda, correlator, frontend_cuda, reed_solomon, ring_cuda, stream_cuda,
+)
 from xritdemod_tpu_torch.ops import agc as agc_op
 from xritdemod_tpu_torch.ops import costas as costas_op
 from xritdemod_tpu_torch.ops.clock_recovery import NTAIL, ClockRecoveryState
-from xritdemod_tpu_torch.tools import roll_probe, timing
+from xritdemod_tpu_torch.tools import edge_cases, roll_probe, timing
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = ["FAMILIES", "SANITIZER_TOOLS", "cases", "flat", "first_difference", "main"]
@@ -97,6 +108,8 @@ FAMILIES = {
     "k4a": "ring_append_kernel",
     "k4b": "ring_extract_kernel",
     "k7_roll": "roll_kernel",
+    "k8_rs": "rs_decode_kernel",
+    "k9_acquire": "acquire_kernel",
 }
 SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 
@@ -374,6 +387,69 @@ def _roll_cases(dev) -> list:
              lambda: flat(roll_probe.barrel_plain(words, amt)))]
 
 
+RS_TILES = 300                 # tiles of 16 codewords: more than the grid's blocks
+RS_TAIL = 5                    # codewords of the part-filled last tile
+ACQ_C = 27                     # channels: three blocks of eight and one of three
+
+
+def _rs_cases(dev) -> list:
+    rng = np.random.default_rng(SEED + 6)
+    cw = lambda n: reed_solomon.rs_encode_np(
+        rng.integers(0, 256, (n, 223), dtype=np.int64).astype(np.uint8))
+    edges = edge_cases.rs_batch(edge_cases.rs_edge_cases(SEED + 7), 16 * 8, SEED + 8)
+    tiles = []
+    for i in range(RS_TILES):
+        kind = i % 4
+        if kind == 0:                                   # every row errored
+            t = rng.integers(0, 256, (16, 255), dtype=np.int64).astype(np.uint8)
+        elif kind == 1:                                 # one row errored
+            t = cw(16)
+            t[i % 16, rng.choice(255, size=9, replace=False)] ^= 0x5A
+        elif kind == 2:                                 # none
+            t = cw(16)
+        else:                                           # the edge words
+            t = edges[16 * (i % 8): 16 * (i % 8) + 16]
+        tiles.append(t)
+    words = np.concatenate(tiles + [cw(RS_TAIL)])
+    x = torch.from_numpy(words).to(dev)
+    f = reed_solomon.interleave(x[: 4 * (x.shape[0] // 4)].reshape(-1, 4, 255)).contiguous()
+    return [(f"k8_rs/codewords B={x.shape[0]}",
+             lambda: flat(reed_solomon.rs_decode(x)),
+             lambda: flat(reed_solomon.rs_decode_plain(x, 0))),
+            (f"k8_rs/frames F={f.shape[0]}",
+             lambda: flat(reed_solomon.rs_decode_frame(f)),
+             lambda: flat(reed_solomon.rs_decode_frame_plain(f, 0)))]
+
+
+def _acquire_cases(dev) -> list:
+    """LRIT's words (a complement pair, the kernel's own instance) and
+    HRIT's (two words that can tie), each on its edge ring."""
+    lags = K.CODED_FRAME_SIZE
+    window = lags + correlator.UW_BITS - 1
+    # Block 0 all unlocked, block 1 one channel, block 2 none, block 3 two of three.
+    locked = torch.ones(ACQ_C, dtype=torch.bool)
+    locked[:8] = False
+    locked[11] = False
+    locked[24] = locked[26] = False
+    locked = locked.to(dev)
+    out = []
+    for mode, words, seed in (("lrit", [K.LRIT_UW0, K.LRIT_UW2], SEED + 9),
+                              ("hrit", [K.HRIT_UW0, K.HRIT_UW2], SEED + 10)):
+        tpl = correlator.make_templates(words)
+        masks = acquire_cuda.pack_masks(tpl)
+        soft = torch.from_numpy(edge_cases.acquire_ring(ACQ_C, words, lags, seed))
+        for dtype in ring_cuda.RING_DTYPES:
+            name = str(dtype).replace("torch.", "")
+            for pad in (0, 1):                    # rows on 16-byte boundaries, and not
+                ring = torch.nn.functional.pad(soft, (0, pad)).to(dtype).to(dev)
+                out.append((f"k9_acquire/{mode} {name} C={ACQ_C} L={ring.shape[1]}",
+                            lambda ring=ring, masks=masks: flat(acquire_cuda.acquire_positions(
+                                ring, locked, masks, window, K.MIN_CORRELATION_BITS)),
+                            lambda ring=ring, tpl=tpl: flat(correlator.acquire_positions_plain(
+                                ring, locked, tpl.to(dev), window, K.MIN_CORRELATION_BITS))))
+    return out
+
+
 def cases() -> list:
     """Every case as `(name, launch, plain)`: `launch()` runs the kernel once
     and returns its outputs and carried state as a flat list of tensors,
@@ -385,7 +461,7 @@ def cases() -> list:
     g = torch.Generator(device=dev).manual_seed(SEED)
     rnd = lambda *shape, scale=0.3: scale * torch.randn(shape, generator=g, device=dev)
     out = (_k1_cases(dm, dev, rnd) + _clock_cases(dm, dev, rnd) + _stream_cases(dm, dev, rnd)
-           + _ring_cases(dev) + _roll_cases(dev))
+           + _ring_cases(dev) + _roll_cases(dev) + _rs_cases(dev) + _acquire_cases(dev))
     for name, _, _ in out:
         if name.split("/")[0] not in FAMILIES:
             raise AssertionError(f"case {name!r} belongs to no family")

@@ -5,7 +5,8 @@
 instance `clock_sinc`, and their block updates at K = 16, `clock_bu` and
 `clock_bu_sinc`), the Viterbi decoder (K3), the symbol ring (K4, `ring`),
 the standalone AGC (K5) and Costas loop (K6; its slab form at K = 8,
-`costas_slab`).
+`costas_slab`), the RS decoder (K8, `rs`) and the acquisition (K9,
+`acquire`).
 
     python -m xritdemod_tpu_torch.tools.kernel_probe            # needs a GPU and nvcc
     python -m xritdemod_tpu_torch.tools.kernel_probe agc_block costas_block
@@ -17,6 +18,8 @@ the standalone AGC (K5) and Costas loop (K6; its slab form at K = 8,
         [--baseline OTHER/stream.cu]
     python -m xritdemod_tpu_torch.tools.kernel_probe viterbi [--rounds N] [--baseline OTHER/viterbi.cu]
     python -m xritdemod_tpu_torch.tools.kernel_probe ring [--rounds N] [--baseline OTHER/ring.cu]
+    python -m xritdemod_tpu_torch.tools.kernel_probe rs acquire [--rounds N] \
+        [--baseline OTHER/rs.cu] [--baseline OTHER/acquire.cu]
     python -m xritdemod_tpu_torch.tools.kernel_probe clock_sinc --variant tails \
         [--baseline OTHER/clock.cu]      # as shipped and only the variants named so
 
@@ -84,6 +87,33 @@ extract (`xrit_ring_extract(ring, fill, pos, ring_out, out, fill_out, ok,
 C, L, E, stream)`, e.g. an earlier commit's) times it as one more
 variant, its extract writing a ring of its own.
 
+K8 (`rs`) and K9 (`acquire`) are timed by their device time apart from
+their wrappers' host time (`timing.graph_ms`: 20 calls captured as a CUDA
+graph, replayed between two events) beside the eager time (20 calls
+between two events, which a short kernel's host time sets).  K8 runs the
+fused step's 8192 codewords on noise (every one errored), clean and with
+1 % of them errored (1 to 16 symbol errors), and 32 codewords (a
+`decode_block` of 8 frames) clean, on noise and with 4 errored, through
+`rs_cuda.rs_decode_kernel`; then the same words as frames (2048 and 8 of
+them) through `reed_solomon.rs_decode_frame`, whose kernels a call are
+counted under `torch.profiler` (`kernels_per_call`: the copies around the
+decoder).  K9 runs the fused receive's rings (C = 2048, its ring length,
+`tools/edge_cases.py::acquire_ring`) on float32 and bf16 with all, half and
+no channels unlocked.  Their variants (`VARIANTS["rs"]`,
+`VARIANTS["acquire"]`: warps and channels a block, blocks an SM, loads in
+flight, and cost probes that leave the counting, the loads or the
+corrections out) run in the same rounds.  Each row holds its bound (`bound_ms`, as
+`chip_smoke.py` counts it: `rs_cuda.bound_work`, `acquire_cuda.bound_work`;
+K8's also `table_bound_ms`, the one-warp table algorithm's count,
+`rs_cuda.table_work`, the yardstick the parent is read against) and, in round 0, whether its outputs equal the plain version's
+(`bits_equal`).  `--baseline PATH` with another `rs.cu` or `acquire.cu`
+that keeps the earlier one-warp entries (`xrit_rs_decode(in, out, nerr,
+tables, B, stream)` with the 1280-byte tables, its frames de-interleaved
+and re-interleaved by copies as that wrapper did; `xrit_acquire(ring,
+locked, templates, pos, C, L, P, W, thresh, stream)`), e.g. `git show
+d6fe24d:xritdemod_tpu_torch/csrc/rs.cu`, times it in the same rounds, in
+turns.
+
 This is how the kernels' layouts were found (PERF.md has the figures); run
 it again when a kernel, or the card, changes.
 """
@@ -97,6 +127,7 @@ import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from xritdemod_tpu_torch import _build
@@ -104,7 +135,11 @@ from xritdemod_tpu_torch import constants as K
 from xritdemod_tpu_torch.models.decoder import CaduDecoder, DecoderConfig
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator
 from xritdemod_tpu_torch.models.receiver import FusedReceiver
-from xritdemod_tpu_torch.ops import clock_cuda, frontend_cuda, ring_cuda, stream_cuda, viterbi_cuda
+from xritdemod_tpu_torch.ops import (
+    acquire_cuda, clock_cuda, correlator, frontend_cuda, reed_solomon, ring_cuda, rs_cuda,
+    stream_cuda, viterbi_cuda,
+)
+from xritdemod_tpu_torch.tools import edge_cases, timing
 from xritdemod_tpu_torch.utils.cplx import CF32
 
 __all__ = ["VARIANTS", "LIBRARY", "main"]
@@ -327,15 +362,57 @@ VARIANTS["ring"] = {
         (("#define RING_APPEND_TMA 0", "#define RING_APPEND_TMA 1"),),
 }
 
+# K8 (`rs_decode_kernel`): warps a block (the syndrome bytes a warp follow),
+# blocks an SM of the persistent grid, the discrepancy's reduction, when the
+# queue of errored rows is corrected.
+VARIANTS["rs"] = {
+    "as shipped": (),
+    "8 warps a block": (("#define RS_WARPS 16 ", "#define RS_WARPS 8 "),),
+    "one block an SM": (("#define RS_BLOCKS_PER_SM 2", "#define RS_BLOCKS_PER_SM 1"),),
+    "Berlekamp-Massey's XOR by shuffles, not one reduction":
+        (("    return (int)__reduce_xor_sync(0xffffffffu, (unsigned)v);",
+          "#pragma unroll\n    for (int o = 16; o > 0; o >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, o);\n"
+          "    return v;"),),
+    "each tile's errored rows corrected with it (no queue across tiles)":
+        (("#define RS_FLUSH 16", "#define RS_FLUSH 1"),),
+    "no errored row corrected (cost probe: its rows are wrong)":
+        (("        for (int q = warp; q < nq; q += RS_WARPS) {",
+          "        for (int q = warp; q < 0; q += RS_WARPS) {"),),
+}
+# K9 (`acquire_kernel`): warps a block, channels a block, loads in flight.
+VARIANTS["acquire"] = {
+    "as shipped": (),
+    "float32: 8 warps a block": (("#define ACQ_F32_WARPS 16", "#define ACQ_F32_WARPS 8"),),
+    "float32: 4 channels a block": (("#define ACQ_F32_CPB 8", "#define ACQ_F32_CPB 4"),),
+    "bf16: 16 warps a block": (("#define ACQ_BF16_WARPS 8", "#define ACQ_BF16_WARPS 16"),),
+    "bf16: 4 channels a block": (("#define ACQ_BF16_CPB 2", "#define ACQ_BF16_CPB 4"),),
+    "bf16 signs by integer compares of the halves":
+        (("        s |= (uint32_t)(__uint_as_float(w[i] << 16) < 0.0f) << (2 * i)\n"
+          "             | (uint32_t)(__uint_as_float(w[i] & 0xFFFF0000u) < 0.0f) << (2 * i + 1);",
+          "        s |= (uint32_t)(((w[i] & 0xFFFFu) - 0x8001u) < 0x7F80u) << (2 * i)\n"
+          "             | (uint32_t)(((w[i] >> 16) - 0x8001u) < 0x7F80u) << (2 * i + 1);"),),
+    "5 loads in flight a thread": (("#define ACQ_INFLIGHT 9", "#define ACQ_INFLIGHT 5"),),
+    "LRIT's second word by its own popcounts":
+        (("    const bool comp = W == 2 &&", "    const bool comp = false &&"),),
+    "lags not counted (cost probe: its positions are wrong)":
+        (("        uint32_t best = comp   ? count_lags",
+          "        uint32_t best = 0u;\n        if (false) best = comp ? count_lags"),),
+    "symbols not loaded (cost probe: its positions are wrong)":
+        (("x[i] = v < nvec ? reinterpret_cast", "x[i] = false ? reinterpret_cast"),),
+}
+
 # The library (`csrc/<name>.cu`) that holds each kernel.
 LIBRARY = {"frontend": "frontend", "frontend_bk8": "frontend", "frontend_bk8_bf16": "frontend",
            "frontend_bk8_agc": "frontend", "frontend_bk8_costas": "frontend",
            "clock": "clock", "clock_sinc": "clock", "clock_bu": "clock", "clock_bu_sinc": "clock",
            "agc_block": "stream", "costas_block": "stream", "costas_slab": "stream",
-           "viterbi": "viterbi", "ring": "ring"}
+           "viterbi": "viterbi", "ring": "ring", "rs": "rs", "acquire": "acquire"}
 # The entry that marks a baseline source as that library's.
 _ENTRY = {"clock": "xrit_clock_sinc", "frontend": "xrit_frontend_form",
-          "stream": "xrit_costas_slab", "ring": "xrit_ring_append"}
+          "stream": "xrit_costas_slab", "ring": "xrit_ring_append", "rs": "xrit_rs_decode",
+          "acquire": "xrit_acquire"}
+# The probes that take their own inputs and their own baseline's entry.
+OWN_PROBES = ("viterbi", "ring", "rs", "acquire")
 
 # K2's instances: (interpolator, chunk K); timed at C = CHANNELS and at one
 # channel (the serial path's and the apps' count); the mmse block update
@@ -594,6 +671,187 @@ def ring_probe(card: str, dev, baseline: str | None, rounds: int = 1) -> None:
         _spread("ring", times, card)
 
 
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12     # H100 SXM: HBM3 bytes/s, float32 FLOP/s
+
+
+def _bound(nbytes: float, nops: float) -> tuple[float, str]:
+    tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def rs_inputs(dev, seed: int = 11) -> dict:
+    """`{case: (entry, words)}`: `(B, 255)` codewords or `(F, 1020)` frames
+    (the same codewords interleaved) of the fused step's and of a
+    `decode_block`'s sizes."""
+    rng = np.random.default_rng(seed)
+    u8 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
+    clean = lambda n: reed_solomon.rs_encode_np(
+        rng.integers(0, 256, (n, 223), dtype=np.int64).astype(np.uint8))
+
+    def hit(words: np.ndarray, rows) -> np.ndarray:
+        out = words.copy()
+        for r in rows:
+            pos = rng.choice(255, size=int(rng.integers(1, 17)), replace=False)
+            out[r, pos] ^= rng.integers(1, 256, pos.size).astype(np.uint8)
+        return out
+
+    big = 4 * 2048
+    words = {
+        "noise": rng.integers(0, 256, (big, 255), dtype=np.int64).astype(np.uint8),
+        "clean": clean(big),
+        "1% errored": hit(clean(big), rng.choice(big, size=big // 100, replace=False)),
+        "small noise": rng.integers(0, 256, (32, 255), dtype=np.int64).astype(np.uint8),
+        "small clean": clean(32),
+        "small 4 errored": hit(clean(32), (0, 9, 17, 31)),
+    }
+    out = {}
+    for name, w in words.items():
+        out[f"{name} {w.shape[0]} codewords"] = ("codewords", u8(w))
+        f = w.reshape(-1, 4, 255).transpose(0, 2, 1).reshape(-1, 1020)
+        out[f"{name} {f.shape[0]} frames"] = ("frames", u8(f))
+    return out
+
+
+def _rs_plain(entry: str, x: torch.Tensor):
+    if entry == "codewords":
+        return reed_solomon.rs_decode_plain(x, 0)
+    B = x.shape[0]
+    corr, nerr = reed_solomon.rs_decode_plain(
+        reed_solomon.deinterleave(x).reshape(B * 4, 255), 0)
+    return reed_solomon.interleave(corr.reshape(B, 4, 255)), nerr.reshape(B, 4)
+
+
+def _old_rs(lib, dev) -> dict:
+    """The entries of an earlier one-warp `rs.cu` (`xrit_rs_decode`, the 1280-byte
+    tables), called as that wrapper did: `{entry: fn}`."""
+    fn = lib.xrit_rs_decode
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bexp, blog, tal, tal1, _ = reed_solomon._gf_tables()
+    tb = torch.from_numpy(np.concatenate([bexp, blog, tal, tal1]).astype(np.uint8)).to(dev)
+
+    def codewords(x):
+        x = x.contiguous()
+        B = x.shape[0]
+        out, nerr = torch.empty_like(x), torch.empty((B,), dtype=torch.int32, device=x.device)
+        with _build.launch_on(x) as stream:
+            err = fn(x.data_ptr(), out.data_ptr(), nerr.data_ptr(), tb.data_ptr(), B, stream)
+        _build.check(err, "baseline xrit_rs_decode")
+        return out, nerr
+
+    def frames(f):
+        B = f.shape[0]
+        corr, nerr = codewords(reed_solomon.deinterleave(f).reshape(B * 4, 255))
+        return reed_solomon.interleave(corr.reshape(B, 4, 255)), nerr.reshape(B, 4)
+    return dict(codewords=codewords, frames=frames)
+
+
+def rs_probe(card: str, dev, baseline: str | None, rounds: int = 1) -> None:
+    """K8 through both entries on `rs_inputs`, beside `baseline`."""
+    inputs = rs_inputs(dev)
+    shipped = dict(codewords=rs_cuda.rs_decode_kernel, frames=reed_solomon.rs_decode_frame)
+    libs = [(what, lib, shipped) for what, lib in _build_variants("rs")]
+    if baseline:
+        libs.append((f"baseline {baseline}", None,
+                     _old_rs(_library_baseline(baseline, "rs"), dev)))
+    want = {case: _bits(_rs_plain(entry, x)) for case, (entry, x) in inputs.items()}
+    times: dict[str, list[float]] = {}
+    for r in range(rounds):
+        for what, lib, fns in libs if r % 2 == 0 else libs[::-1]:
+            for case, (entry, x) in inputs.items():
+                fn = lambda: fns[entry](x)
+                row = dict(kernel="rs", round=r, variant=what, case=case, card=card)
+                nerr = want[case][1]
+                row["bound_ms"], row["bound_by"] = _bound(*rs_cuda.bound_work(nerr))
+                row["table_bound_ms"], row["table_bound_by"] = _bound(*rs_cuda.table_work(
+                    nerr.numel(), int((nerr != 0).sum())))
+                with _build.using("rs", lib or _build.load("rs")):
+                    if r == 0:
+                        row["bits_equal"] = _same_bits(_bits(fn()), want[case])
+                        _, ks = timing.device_kernels(fn)
+                        row["kernels_per_call"] = sum(c for _, _, c in ks)
+                        row["kernels"] = sorted({k.split("(")[0] for k, _, _ in ks})
+                    row["device_ms"] = timing.graph_ms(fn)
+                    row["eager_ms"] = _time_ms(fn, 20)
+                row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+                times.setdefault(f"{what} | {case} | device", []).append(row["device_ms"])
+                times.setdefault(f"{what} | {case} | eager", []).append(row["eager_ms"])
+                print(json.dumps(row), flush=True)
+    if rounds > 1:
+        _spread("rs", times, card)
+
+
+def _old_acquire(lib):
+    """An earlier one-warp `xrit_acquire` (its templates tensor), called as that wrapper
+    did."""
+    def call(ring, locked, templates, window, thresh):
+        name = "xrit_acquire_bf16" if ring.dtype == torch.bfloat16 else "xrit_acquire"
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        C, L = ring.shape
+        pos = torch.empty((C,), dtype=torch.int32, device=ring.device)
+        with _build.launch_on(ring) as stream:
+            err = fn(ring.data_ptr(), locked.data_ptr(), templates.data_ptr(), pos.data_ptr(),
+                     C, L, int(window) - correlator.UW_BITS + 1, templates.shape[0],
+                     int(thresh), stream)
+        _build.check(err, "baseline xrit_acquire")
+        return pos
+    return call
+
+
+def acquire_probe(card: str, dev, baseline: str | None, rounds: int = 1) -> None:
+    """K9 on the fused receive's rings (float32, bf16; all, half, no
+    channels unlocked), beside `baseline`."""
+    cfg = DemodConfig.lrit(sample_rate=1_250_000)
+    rx = FusedReceiver(cfg, DecoderConfig(mode="lrit"), channels=CHANNELS, block_len=BLOCK_LEN,
+                       device=dev)
+    C, L, window = CHANNELS, rx.ring_len, rx._acq
+    thresh = rx.decoder_config.min_correlation_bits
+    lags = window - correlator.UW_BITS + 1
+    soft = torch.from_numpy(edge_cases.acquire_ring(C, rx.decoder_config.uws, lags, 7)).to(dev)
+    ring = torch.zeros((C, L), device=dev)
+    ring[:, : soft.shape[1]] = soft
+    del soft
+    lockings = dict(all_unlocked=torch.zeros(C, dtype=torch.bool, device=dev),
+                    half_unlocked=torch.arange(C, device=dev) % 2 == 1,
+                    none_unlocked=torch.ones(C, dtype=torch.bool, device=dev))
+    tpl = acquire_cuda.unpack_masks(rx._acq_words, dev)
+    libs = [(what, lib, acquire_cuda.acquire_positions)
+            for what, lib in _build_variants("acquire")]
+    if baseline:
+        libs.append((f"baseline {baseline}", None,
+                     _old_acquire(_library_baseline(baseline, "acquire"))))
+    runs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        r_ = ring.to(dt)
+        for name, locked in lockings.items():
+            case = f"{name} {str(dt).replace('torch.', '')} C = {C}"
+            unlocked = int((~locked).sum())
+            runs[case] = ((r_, locked, window, thresh), _bound(*acquire_cuda.bound_work(
+                C, unlocked, window, tpl.shape[0], r_.element_size())),
+                correlator.acquire_positions_plain(r_, locked, tpl, window, thresh))
+    times: dict[str, list[float]] = {}
+    for r in range(rounds):
+        for what, lib, call in libs if r % 2 == 0 else libs[::-1]:
+            for case, ((rg, locked, win, th), (bms, by), want) in runs.items():
+                words = rx._acq_words if lib else tpl
+                fn = lambda: call(rg, locked, words, win, th)
+                row = dict(kernel="acquire", round=r, variant=what, case=case, card=card,
+                           bound_ms=bms, bound_by=by)
+                with _build.using("acquire", lib or _build.load("acquire")):
+                    if r == 0:
+                        row["bits_equal"] = bool(torch.equal(fn(), want))
+                    row["device_ms"] = timing.graph_ms(fn)
+                    row["eager_ms"] = _time_ms(fn, 20)
+                row["share_of_bound"] = bms / row["device_ms"]
+                times.setdefault(f"{what} | {case} | device", []).append(row["device_ms"])
+                times.setdefault(f"{what} | {case} | eager", []).append(row["eager_ms"])
+                print(json.dumps(row), flush=True)
+    if rounds > 1:
+        _spread("acquire", times, card)
+
+
 def _old_extract(lib, ring, fill, pos, E):
     """A call of an out-of-place `xrit_ring_extract` (its own `ring_out`),
     returning what the in-place wrapper returns."""
@@ -646,10 +904,13 @@ def main() -> None:
         kinds[next((lib for lib, entry in _ENTRY.items() if entry in text), "viterbi")] = path
     if "viterbi" in kernels:
         viterbi_probe(card, dev, kinds.get("viterbi"), rounds)
-        kernels = [k for k in kernels if k != "viterbi"]
     if "ring" in kernels:
         ring_probe(card, dev, kinds.get("ring"), rounds)
-        kernels = [k for k in kernels if k != "ring"]
+    if "rs" in kernels:
+        rs_probe(card, dev, kinds.get("rs"), rounds)
+    if "acquire" in kernels:
+        acquire_probe(card, dev, kinds.get("acquire"), rounds)
+    kernels = [k for k in kernels if k not in OWN_PROBES]
     if not kernels:
         return
     demod = Demodulator(DemodConfig.lrit(sample_rate=1_250_000), BLOCK_LEN)
@@ -701,7 +962,7 @@ def main() -> None:
         costas_slab=lambda: stream_cuda.costas_block_kernel(xc, st.costas, demod._costas, 8),
     )
     others = {lib: _library_baseline(path, lib) for lib, path in kinds.items()
-              if lib in _ENTRY and lib != "ring"}
+              if lib in _ENTRY and lib not in OWN_PROBES}
     for kernel in kernels:
         library = LIBRARY[kernel]
         libs = _build_variants(kernel, only)

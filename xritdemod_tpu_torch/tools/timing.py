@@ -8,6 +8,10 @@ around the N and one synchronisation at the end; the time divided by N.  On
 the CPU the host clock takes the events' place.  A tool that times calls one
 at a time (`decode_bench`) runs the rule with N = 1, once per reading.
 
+`graph_ms` is the rule for a kernel's device time apart from its wrapper's
+host time (a short kernel's eager calls are timed at the host's pace): N
+calls captured once as a CUDA graph, replayed between two events.
+
 `noise_block` is the profilers' input, N(0, 0.3) noise from numpy seed 0,
 as the JAX tools draw it.  `device_kernels` / `device_busy_ms` read the
 device time of the kernels of
@@ -26,8 +30,8 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["card", "require_device", "sync", "timed", "noise_block", "device_kernels",
-           "device_busy_ms",
+__all__ = ["card", "require_device", "sync", "timed", "graph_ms", "noise_block",
+           "device_kernels", "device_busy_ms",
            "FRONTEND_FORMS", "launch_counts", "reset_launches", "Launches"]
 
 
@@ -78,6 +82,31 @@ def timed(fn, carry, n: int, device, launches: dict | None = None):
     b.record()
     torch.cuda.synchronize(device)
     return a.elapsed_time(b) / n, carry
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time (ms) of one call of `fn()`, its host time left out: one
+    eager warm-up, `calls` calls captured once as a CUDA graph (the wrapper's
+    Python runs at capture only), one replay to warm, then `replays` replays
+    between two events; the time over `calls * replays`.  `fn` must make no
+    synchronising call (a capture refuses one)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / (calls * replays)
+    del g
+    return ms
 
 
 def noise_block(C: int, T: int, device):
