@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation ran on the card (the
+union of the device's operations, whole blocks only)."""
+
+
+def read(res):
+    tr = res["trace"]
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
