@@ -118,7 +118,7 @@ def test_fused_results_outlive_later_steps(run):
     assert len(run["copies"]) == nblocks + 2          # + the two flush steps
     t = run["timings"]
     assert t["blocks"] == nblocks and t["wire"] == "f32"
-    assert set(t) == {"first_block_s", "assemble_s", "stream_and_pull_s", "blocks", "wire"}
+    assert set(t) == {"assemble_s", "stream_and_pull_s", "blocks", "wire"}
 
 
 def test_channel_file_is_the_reference(run):

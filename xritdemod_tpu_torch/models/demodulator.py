@@ -35,6 +35,7 @@ from xritdemod_tpu_torch.ops.clock_cuda import (
 )
 from xritdemod_tpu_torch.ops.frontend_cuda import demod_frontend
 from xritdemod_tpu_torch.ops.stream_cuda import agc_block_kernel, costas_block_kernel
+from xritdemod_tpu_torch.runtime import metrics
 from xritdemod_tpu_torch.utils.cplx import CF32, from_complex, map_tree
 
 __all__ = ["DemodConfig", "DemodState", "Demodulator", "quantize_symbols", "slot_budget"]
@@ -283,12 +284,16 @@ class Demodulator:
         """`(C, T)` block (CF32 or complex numpy) with `(C,)`-leading state
         -> (soft `(C, num_slots)`, valid `(C, num_slots)`, next state)."""
         cfg = self.config
-        if not isinstance(x, CF32):
-            x = from_complex(x, self.device)
-        x, dec_hist = self._decimate(x, state, "block_batch")
-        if cfg.frontend_kernel != "split":
-            # Channels-last from here on: the layout of both kernels.
-            return self._fused_cl(_transpose(x), dec_hist, state)
+        fused = cfg.frontend_kernel != "split"
+        with metrics.span("rx.demod.layout"):
+            if not isinstance(x, CF32):
+                x = from_complex(x, self.device)
+            x, dec_hist = self._decimate(x, state, "block_batch")
+            if fused:
+                # Channels-last from here on: the layout of both kernels.
+                x = _transpose(x)
+        if fused:
+            return self._fused_cl(x, dec_hist, state)
         syms, valid, agc_gain, rrc_hist, costas_state, clock_state = self._split(x, state)
         soft = syms.re   # the reference takes Re{.}
         return soft, valid, DemodState(dec_hist, agc_gain, rrc_hist, costas_state, clock_state)
@@ -301,30 +306,37 @@ class Demodulator:
         the `(C, T) -> (T, C)` transpose in front of the fused front end.
         The split front end and the decimating FIR work on `(C, T)`, so with
         either the block is transposed once here, as the reference does."""
-        if not isinstance(xT, CF32):
-            xT = from_complex(xT, self.device)
-        if self.config.frontend_kernel == "split" or self.config.decimation > 1:
-            return self.block_batch(_transpose(xT), state)
-        if xT.re.shape[0] != self.block_len:
-            raise ValueError(
-                f"block_batch_cl got {xT.re.shape[0]} samples; this Demodulator "
-                f"was built for block_len={self.block_len}"
-            )
-        xT = CF32(xT.re.contiguous(), xT.im.contiguous())
+        with metrics.span("rx.demod.layout"):
+            if not isinstance(xT, CF32):
+                xT = from_complex(xT, self.device)
+            channels_first = self.config.frontend_kernel == "split" or self.config.decimation > 1
+            if channels_first:
+                x = _transpose(xT)
+            elif xT.re.shape[0] != self.block_len:
+                raise ValueError(
+                    f"block_batch_cl got {xT.re.shape[0]} samples; this Demodulator "
+                    f"was built for block_len={self.block_len}"
+                )
+            else:
+                xT = CF32(xT.re.contiguous(), xT.im.contiguous())
+        if channels_first:
+            return self.block_batch(x, state)
         return self._fused_cl(xT, state.dec_hist, state)
 
     def _fused_cl(self, xT: CF32, dec_hist: CF32, state: DemodState):
         """The fused front end and the `(T, C)` clock on a decimated
         channels-last block."""
-        yT, agc_gain, rrc_hist, costas_state = demod_frontend(
-            xT, state.agc_gain, state.rrc_hist, state.costas,
-            self._agc, self._rrc_taps, self._costas,
-            block_k=self.block_k, precision=self.precision,
-        )
-        syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
-            yT, state.clock, self._clock, self.num_slots, self.config.clock_interp,
-            self.config.clock_block_update, self.clock_segments,
-        )
+        with metrics.span("rx.demod.frontend"):
+            yT, agc_gain, rrc_hist, costas_state = demod_frontend(
+                xT, state.agc_gain, state.rrc_hist, state.costas,
+                self._agc, self._rrc_taps, self._costas,
+                block_k=self.block_k, precision=self.precision,
+            )
+        with metrics.span("rx.demod.clock"):
+            syms, valid, clock_state = clock_recovery_block_kernel_batch_cl(
+                yT, state.clock, self._clock, self.num_slots, self.config.clock_interp,
+                self.config.clock_block_update, self.clock_segments,
+            )
         return syms.re, valid, DemodState(dec_hist, agc_gain, rrc_hist, costas_state, clock_state)
 
     def _decimate(self, x: CF32, state: DemodState, what: str):
@@ -356,13 +368,15 @@ class Demodulator:
         cfg = self.config
         fe_k = 0 if exact else self.block_k
         ck_k = 0 if exact else cfg.clock_block_update
-        x, agc_gain = agc_block_kernel(x, state.agc_gain, self._agc)
-        x, rrc_hist = fir.fir_block(x, self._rrc_taps, state.rrc_hist)
-        x, costas_state = costas_block_kernel(x, state.costas, self._costas, fe_k)
-        syms, valid, clock_state = clock_recovery_block_kernel_batch(
-            x, state.clock, self._clock, self.num_slots, cfg.clock_interp,
-            ck_k, self.clock_segments,
-        )
+        with metrics.span("rx.demod.frontend"):
+            x, agc_gain = agc_block_kernel(x, state.agc_gain, self._agc)
+            x, rrc_hist = fir.fir_block(x, self._rrc_taps, state.rrc_hist)
+            x, costas_state = costas_block_kernel(x, state.costas, self._costas, fe_k)
+        with metrics.span("rx.demod.clock"):
+            syms, valid, clock_state = clock_recovery_block_kernel_batch(
+                x, state.clock, self._clock, self.num_slots, cfg.clock_interp,
+                ck_k, self.clock_segments,
+            )
         return syms, valid, agc_gain, rrc_hist, costas_state, clock_state
 
     # -- the serial path ------------------------------------------------------

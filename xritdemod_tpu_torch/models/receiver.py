@@ -38,11 +38,24 @@ from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator, Dem
 from xritdemod_tpu_torch.ops import correlator as corr_op
 from xritdemod_tpu_torch.ops.acquire_cuda import acquire_positions, pack_masks
 from xritdemod_tpu_torch.ops.ring_cuda import ring_append, ring_extract
+from xritdemod_tpu_torch.runtime import metrics
 from xritdemod_tpu_torch.utils.cplx import CF32, dequantize_iq_s8, from_complex
 
 __all__ = ["RxState", "FusedReceiver"]
 
 _CODED = C.CODED_FRAME_SIZE
+
+
+def _numel(t: torch.Tensor) -> int:
+    return t.numel()
+
+
+def _nonzero(t: torch.Tensor) -> int:
+    return int((t != 0).sum())
+
+
+def _unlocked(locked: torch.Tensor) -> int:
+    return int((~locked).sum())
 
 
 class RxState(NamedTuple):
@@ -112,6 +125,9 @@ class FusedReceiver:
             raise ValueError(f"ring_len {L} < {2 * _CODED + S} minimum")
         self.ring_len = L
         self._acq = _CODED + corr_op.UW_BITS - 1
+        # What the step's spans carry (`runtime/metrics.py`), made once.
+        self._step_attrs = {"C": channels, "T": block_len, "k": self.k}
+        self._extract_attrs = [{"i": i} for i in range(self.k)]
 
     def init_state(self) -> RxState:
         Cn, L, dev = self.channels, self.ring_len, self.device
@@ -134,49 +150,65 @@ class FusedReceiver:
 
     def _after_demod(self, demod_out, st: RxState):
         soft, valid, dstate = demod_out
-        # The exact clock's valid mask is a per-channel prefix (slots are
-        # emitted in symbol order), so `soft` is already dense: the count is
-        # all the append needs.  The block update's mask can have a gap (a
-        # chunk cut short at a limit, the next one going on): its symbols are
-        # packed to the front first, in order.  (The JAX package appends the
-        # count's prefix either way, which then takes a zero for the
-        # symbol after the gap.)
-        if self.demod_config.clock_block_update:
-            order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
-            soft = torch.gather(soft, 1, order)
-        n_new = valid.sum(-1).to(torch.int32)
-        ring, fill, ovf = ring_append(st.ring, st.fill, soft, n_new)
+        span, count = metrics.span, metrics.count
+        with span("rx.ring.append"):
+            # The exact clock's valid mask is a per-channel prefix (slots are
+            # emitted in symbol order), so `soft` is already dense: the count
+            # is all the append needs.  The block update's mask can have a gap
+            # (a chunk cut short at a limit, the next one going on): its
+            # symbols are packed to the front first, in order.  (The JAX
+            # package appends the count's prefix either way, which then takes
+            # a zero for the symbol after the gap.)
+            if self.demod_config.clock_block_update:
+                order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
+                soft = torch.gather(soft, 1, order)
+            n_new = valid.sum(-1).to(torch.int32)
+            ring, fill, ovf = ring_append(st.ring, st.fill, soft, n_new)
         locked, tails = st.locked, st.tails
 
         # k frame extractions, each decoded by one flat decode_frames call.
         # A successful unlocked extraction locks (sync verified) and leaves
         # the stream frame-aligned, so later extractions use pos 0.
         batches, oks = [], []
-        for _ in range(self.k):
+        for attrs in self._extract_attrs:
             # Acquisition reflects the post-pop ring; only unlocked channels
             # correlate (in steady state every channel is frame-aligned at
             # pos 0 and the launch reads the flags alone).
-            pos = self._acquire(ring, locked)
-            ring, fill, chunk, ok = ring_extract(ring, fill, pos, _CODED)
-            batch, ntails = self._dec.decode_frames(chunk, tails)
-            tails = torch.where(ok[:, None], ntails, tails)
-            locked = torch.where(ok, batch.sync_ok, locked)
-            batch = batch._replace(
-                frame_ok=batch.frame_ok & ok, sync_ok=batch.sync_ok & ok
-            )
+            with span("rx.acquire", attrs):
+                count("acquire.channels", locked, _unlocked)
+                pos = self._acquire(ring, locked)
+            with span("rx.ring.extract", attrs):
+                ring, fill, chunk, ok = ring_extract(ring, fill, pos, _CODED)
+            with span("rx.decode", attrs):
+                batch, ntails = self._dec.decode_frames(chunk, tails)
+            with span("rx.select", attrs):
+                tails = torch.where(ok[:, None], ntails, tails)
+                locked = torch.where(ok, batch.sync_ok, locked)
+                batch = batch._replace(
+                    frame_ok=batch.frame_ok & ok, sync_ok=batch.sync_ok & ok
+                )
+            count("decode.rows", ok, _numel)
+            count("decode.delivered", batch.frame_ok)
+            count("rs.codewords", batch.rs_errors, _numel)
+            count("rs.errored", batch.rs_errors, _nonzero)
             batches.append(batch)
             oks.append(ok)
-        stacked = stack_batches(batches, dim=1)
-        ok = torch.stack(oks, dim=1)                       # (C, k)
+        with span("rx.merge"):
+            stacked = stack_batches(batches, dim=1)
+            ok = torch.stack(oks, dim=1)                       # (C, k)
         return stacked, ok, ovf, RxState(dstate, ring, fill, locked, tails)
 
     @torch.no_grad()
     def step(self, x, state: RxState):
         """`(C, T)` IQ block (CF32 or complex numpy) -> (FrameBatch with
         `(C, k)` fields, ok `(C, k)`, overflow `(C,)`, next state)."""
-        if not isinstance(x, CF32):
-            x = from_complex(x, self.device)
-        return self._after_demod(self._demod.block_batch(x, state.demod), state)
+        with metrics.span("rx.step", self._step_attrs):
+            with metrics.span("rx.ingest"):
+                if not isinstance(x, CF32):
+                    x = from_complex(x, self.device)
+            with metrics.span("rx.demod"):
+                out = self._demod.block_batch(x, state.demod)
+            return self._after_demod(out, state)
 
     @torch.no_grad()
     def step_cl(self, xT, state: RxState):
@@ -184,14 +216,22 @@ class FusedReceiver:
         order of an interleaved multichannel source) -> the results of `step`
         on its transpose, bit for bit, without the device-side input
         transpose (`Demodulator.block_batch_cl`)."""
-        return self._after_demod(self._demod.block_batch_cl(xT, state.demod), state)
+        with metrics.span("rx.step", self._step_attrs):
+            with metrics.span("rx.ingest"):
+                if not isinstance(xT, CF32):
+                    xT = from_complex(xT, self.device)
+            with metrics.span("rx.demod"):
+                out = self._demod.block_batch_cl(xT, state.demod)
+            return self._after_demod(out, state)
 
     @torch.no_grad()
     def step_int8(self, q, state: RxState):
         """Quantized-wire variant: `(C, 2T)` interleaved int8 I/Q block
         (`utils.cplx.quantize_iq_s8` layout) — same contract as `step`, a
         quarter of the host->device bytes, dequantized on the device."""
-        q = torch.as_tensor(q, device=self.device)
-        return self._after_demod(
-            self._demod.block_batch(dequantize_iq_s8(q), state.demod), state
-        )
+        with metrics.span("rx.step", self._step_attrs):
+            with metrics.span("rx.ingest"):
+                x = dequantize_iq_s8(torch.as_tensor(q, device=self.device))
+            with metrics.span("rx.demod"):
+                out = self._demod.block_batch(x, state.demod)
+            return self._after_demod(out, state)

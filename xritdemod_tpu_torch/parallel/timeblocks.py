@@ -30,6 +30,7 @@ from xritdemod_tpu_torch import constants as K
 from xritdemod_tpu_torch.models.decoder import DecoderConfig, StreamDecoder
 from xritdemod_tpu_torch.models.demodulator import DemodConfig, Demodulator
 from xritdemod_tpu_torch.parallel.channels import ChannelMesh, gather, on_device
+from xritdemod_tpu_torch.runtime import metrics
 from xritdemod_tpu_torch.utils.cplx import CF32, IQ_S8_SCALE, from_complex
 
 __all__ = ["TimeBlockDemodulator", "FoldedCaptureReceiver"]
@@ -303,7 +304,10 @@ class FoldedCaptureReceiver:
         then zeros: `_block`) flush the last ring-buffered frames (their junk tail fails the
         per-frame sync recheck or RS).  Results stay on the device as per-block
         tensors (fresh ones: the step writes its ring in place, never its
-        outputs) and come back as one stacked copy per field at the end."""
+        outputs) and come back as one stacked copy per field at the end.
+        Spans (`runtime/metrics.py`), under the call's `fold.process`:
+        `fold.assemble` and `fold.step` a block, then `fold.pull` and
+        `fold.dedup`."""
         F, T = self.folds, self.block_len
         int8_wire = x.dtype == np.int8
         rx = self._get_rx()
@@ -311,38 +315,38 @@ class FoldedCaptureReceiver:
         saved = []
         buf = np.zeros((F, 2 * T), np.int8) if int8_wire else np.zeros((F, T), np.complex64)
         noise = self._noise(int8_wire)
-        t_assemble = t_first = 0.0
-        t0 = time.perf_counter()
+        t_assemble = 0
         for j in range(nblocks + 2):
-            ta = time.perf_counter()
+            ta = metrics.clock()
             self._block(x, starts, j, nblocks, buf, noise, 2 if int8_wire else 1)
-            t_assemble += time.perf_counter() - ta
+            tb = metrics.clock()
+            metrics.add("fold.assemble", ta, tb)
+            t_assemble += tb - ta
             # `step_int8` and `step` copy `buf` before returning (on the
             # CPU they consume it), so it can be refilled.
-            if int8_wire:
-                batch, ok, ovf, st = rx.step_int8(buf, st)
-            else:
-                batch, ok, ovf, st = rx.step(buf, st)
+            with metrics.span("fold.step"):
+                if int8_wire:
+                    batch, ok, ovf, st = rx.step_int8(buf, st)
+                else:
+                    batch, ok, ovf, st = rx.step(buf, st)
             saved.append((batch.frame_ok, batch.scid, batch.vcid, batch.counter, batch.vcdu))
-            if j == 0:
-                float(batch.corr[0, 0])         # the first block, kernels built
-                t_first = time.perf_counter() - t0
         t_pull0 = time.perf_counter()
-        okh, scid, vcid, ctr, vcdu = (torch.stack(xs).cpu().numpy() for xs in zip(*saved))
+        with metrics.span("fold.pull"):
+            okh, scid, vcid, ctr, vcdu = (torch.stack(xs).cpu().numpy() for xs in zip(*saved))
         self.last_timings = {
-            "first_block_s": t_first,               # the first block's step, synchronised
-            "assemble_s": t_assemble,               # host-side fold copies, all blocks
+            "assemble_s": t_assemble * 1e-9,        # host-side fold copies, all blocks
             "stream_and_pull_s": time.perf_counter() - t_pull0,   # drain + one copy a field
             "blocks": nblocks,
             "wire": "s8" if int8_wire else "f32",
         }
-        per_fold: list[list] = [[] for _ in range(F)]
-        # nonzero is row-major (j, f, k): within each fold the appends are in
-        # stream order, which _dedup relies on.
-        for j, f, k in zip(*np.nonzero(okh)):
-            per_fold[f].append((int(scid[j, f, k]), int(vcid[j, f, k]), int(ctr[j, f, k]),
-                                bytes(vcdu[j, f, k])))
-        return self._dedup(per_fold)
+        with metrics.span("fold.dedup"):
+            per_fold: list[list] = [[] for _ in range(F)]
+            # nonzero is row-major (j, f, k): within each fold the appends
+            # are in stream order, which _dedup relies on.
+            for j, f, k in zip(*np.nonzero(okh)):
+                per_fold[f].append((int(scid[j, f, k]), int(vcid[j, f, k]), int(ctr[j, f, k]),
+                                    bytes(vcdu[j, f, k])))
+            return self._dedup(per_fold)
 
     @torch.no_grad()
     def process(self, x) -> list[tuple[int, int, int, bytes]]:
@@ -361,7 +365,8 @@ class FoldedCaptureReceiver:
         F, T = self.folds, self.block_len
         starts, nblocks = self._fold_starts(N)
         if self.use_fused:
-            return self._process_fused(x, starts, nblocks)
+            with metrics.span("fold.process"):
+                return self._process_fused(x, starts, nblocks)
         if int8_wire:
             f = x.astype(np.float32) / np.float32(IQ_S8_SCALE)
             x = (f[0::2] + 1j * f[1::2]).astype(np.complex64)
